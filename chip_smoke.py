@@ -3,8 +3,8 @@
 
 Run from the root of a checkout on a machine with an H100 (compute
 capability 9.0), the CUDA toolkit and PyTorch built for CUDA.  It builds the
-port's kernel from the checkout's sources (into build/oswald_tpu_torch/),
-then:
+port's kernels from the checkout's sources (into build/oswald_tpu_torch/,
+one nvcc per source, all started together), then:
 
 1. probe: PyTorch, CUDA, nvcc, compute capability, Triton, and the card's
    name and power limit;
@@ -17,13 +17,29 @@ then:
 4. main path: SearchEngine.search for the 512-residue query and a random
    65-residue one, each one warm-up plus 3 timed runs, with the kernel's
    launch count read around them; the planted homolog must rank first with
-   E < 1e-3 and every hit's score must equal the plain version's on the CPU.
+   E < 1e-3 and every hit's score must equal the plain version's on the CPU;
+5. packed kernel against plain version: sw_groups_packed and
+   sw_groups_packed_ref on one group of every bin, for the packing plan of
+   20 mixed queries of 100-400 residues and for a uniform layout of 8
+   queries of 65 residues; equal int32 scores (tolerance: exact);
+6. batched main path: SearchEngine.search_many of the 20 mixed queries, of
+   10 queries of 512 residues, and of a batch with one 2000-residue query
+   among short ones (which runs unpacked), and search_stream of 8 queries
+   of 65 residues at window 4, each one warm-up plus 3 timed runs with the
+   kernels' launch counts set to 0 before and read after; results must
+   equal per-query search (scores and ids exact), launch counts must be the
+   plan's, the planted homolog must rank first for its query, and one
+   query per batch is rescored on the CPU.  Seconds and GCUPS of each batch
+   stand beside those of the same queries searched one by one.
 
 Every phase raises on failure (non-zero exit, no result line).  The
-second-to-last line is a JSON object with the kernel's launches, error and
-times; the last is {"ok": true, "device": {...}}.  Times are CUDA-event
-times for kernels and host wall times (ended by a synchronising readback)
-for searches.
+second-to-last line is a JSON object with, for each kernel, its launches on
+the main path, its error against the plain version, its time, the plain
+version's and the least time the card could take for the same work (the
+larger of the bytes moved over the memory rate and the integer operations
+over the INT32 instruction rate); the last is {"ok": true, "device": {...}}.
+Times are CUDA-event times for kernels and host wall times (ended by a
+synchronising readback) for searches.
 """
 
 import importlib.util
@@ -40,8 +56,22 @@ SEED = 0
 N_SEQS = 570_000
 Q_LONG, Q_SHORT = 512, 65
 TIMED_RUNS = 3
-KERNEL_SOURCE = "oswald_tpu_torch/kernels/csrc/sw_groups.cu"
+N_MIXED, MIXED_LO, MIXED_HI = 20, 100, 400
+N_LONG_BATCH = 10
+Q_LEFTOVER = 2000
+N_UNIFORM = 8
+STREAM_WINDOW = 4
+SOURCES = {"sw_groups": "oswald_tpu_torch/kernels/csrc/sw_groups.cu",
+           "sw_groups_packed":
+               "oswald_tpu_torch/kernels/csrc/sw_groups_packed.cu"}
 REPLACES = "oswald_tpu/kernels/sw_lanes.py:309"
+# H100 SXM data sheet: 3.35 TB/s of HBM; 67 TFLOP/s of float32 is 128 lanes
+# per SM doing one FMA (2 FLOP) per clock, and INT32 has half the lanes
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 2 / 2
+# integer operations of one cell of the recurrence: diag + s, max 0, max E,
+# cur' - oe, max into best, max(cur', F), E - e, max, F - e, max
+OPS_PER_CELL = 10
 
 
 def say(msg=""):
@@ -60,6 +90,15 @@ def timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
+
+
+def bound(cells, n_bytes):
+    """(least milliseconds the card could take, what bounds it) for `cells`
+    cell updates over inputs and outputs of `n_bytes` bytes."""
+    by_ops = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else \
+        (by_bytes, "bytes")
 
 
 def probe():
@@ -82,22 +121,24 @@ def probe():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    build.load("sw_groups")
-    log = build.build_logs.get("sw_groups")
-    say(f"sw_groups {'built' if log is not None else 'loaded (built before)'}"
-        f" in {time.perf_counter() - t0:.2f} s: "
-        f"{build.library_path('sw_groups')}")
-    for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line:
-            say("  ptxas: " + line.strip())
+    build.build_all(sorted(SOURCES))
+    say(f"kernels built in {time.perf_counter() - t0:.2f} s")
+    for name in sorted(SOURCES):
+        build.load(name)
+        log = build.build_logs.get(name)
+        say(f"{name} {'built' if log is not None else 'loaded (built before)'}"
+            f": {build.library_path(name)}")
+        for line in (log or "").splitlines():
+            if "registers" in line or "spill" in line:
+                say("  ptxas: " + line.strip())
     return smi
 
 
 def make_database(n_seqs, seed):
     """Phase 2: (db, q_long, q_short)."""
-    from oswald_tpu.io import pack_sequences
-    from oswald_tpu.io.synth import (make_realistic_corpus, mutate,
-                                     realistic_residues)
+    from oswald_tpu_torch.io import pack_sequences
+    from oswald_tpu_torch.io.synth import (make_realistic_corpus, mutate,
+                                           realistic_residues)
     rng = np.random.default_rng(seed)
     q_long = realistic_residues(rng, Q_LONG)
     q_short = realistic_residues(rng, Q_SHORT)
@@ -113,15 +154,20 @@ def make_database(n_seqs, seed):
     return db, q_long, q_short
 
 
+def first_groups(engine):
+    """(group table on the host, index of the first group of every bin)."""
+    table = engine.state.groups.cpu().numpy()
+    return table, [int(np.flatnonzero(table[:, 1] == L)[0])
+                   for L in engine.db.bin_lengths]
+
+
 def kernel_vs_plain(engine, queries):
     """Phase 3: sw_groups against sw_groups_ref on one group of every bin.
-    Returns (max_abs_err, kernel ms, plain ms) summed over the bins at the
-    first query length."""
+    Returns (max_abs_err, kernel ms, plain ms, bound ms, bound by), the
+    times summed over the bins at the first query length."""
     from oswald_tpu_torch.kernels.sw_lanes import sw_groups, sw_groups_ref
     st, dev = engine.state, engine.device
-    table = st.groups.cpu().numpy()
-    firsts = [int(np.flatnonzero(table[:, 1] == L)[0])
-              for L in engine.db.bin_lengths]
+    table, firsts = first_groups(engine)
     cfg = engine.config
     worst, sums = 0, {}
     say("bin L, query m, kernel ms, plain ms")
@@ -145,12 +191,19 @@ def kernel_vs_plain(engine, queries):
                                      f"by {err} on bin {table[gi, 1]}, "
                                      f"m={m}")
         say(f"all bins, m={m}: kernel {s[0]:.3f} ms, plain {s[1]:.1f} ms")
-    return worst, sums[queries[0][0]][0], sums[queries[0][0]][1]
+    m = queries[0][0]
+    lanes = 8 * 128
+    cols = sum(int(table[gi, 1]) for gi in firsts)
+    b_ms, b_by = bound(
+        cols * lanes * m,
+        cols * lanes + len(firsts) * (8 + 4 * m + 4 * 24 * 24 + 4 * lanes))
+    say(f"all bins, m={m}: bound {b_ms:.3f} ms (by {b_by})")
+    return worst, sums[m][0], sums[m][1], b_ms, b_by
 
 
 def rescore_on_cpu(engine, query, res):
     """The plain version's scores of `query` against the hits' sequences."""
-    from oswald_tpu.alphabet import DUMMY
+    from oswald_tpu_torch.alphabet import DUMMY
     from oswald_tpu_torch.kernels.sw_lanes import sw_lanes_ref
     seqs = [engine.db.sequence_of(int(i)) for i in res.seq_ids]
     cols = np.full((max(len(s) for s in seqs), len(seqs)), DUMMY, np.int8)
@@ -201,17 +254,204 @@ def check_results(engine, queries, results):
                              f"{top.titles[0]} E={top.evalues[0]}")
 
 
+def wall_ms(fn):
+    """(result, milliseconds) of one fn() on the host clock, with the card
+    idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def packed_layouts(engine, mixed, uniform):
+    """{name: [(q_packed, segs) on the device, ...]}: the packing plan of
+    the mixed queries (unequal segments, filler blocks) and the uniform
+    queries as equal segments of one q_packed."""
+    from oswald_tpu_torch.engine.search import (mixed_pack_plan,
+                                                plan_segments)
+    cfg, dev = engine.config, engine.device
+    bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows, mixed)
+    if rest or not bins:
+        raise AssertionError(f"mixed queries did not all pack: rest {rest}")
+    out = {"mixed": [
+        (torch.from_numpy(qp).to(dev),
+         torch.from_numpy(plan_segments(idxs, sm, used, cfg.u_rows,
+                                        mixed)).to(dev))
+        for idxs, qp, sm, used in bins]}
+    m = len(uniform[0])
+    out["uniform"] = [(
+        torch.as_tensor(np.concatenate(uniform), dtype=torch.int32,
+                        device=dev),
+        torch.tensor([(i * m, m) for i in range(len(uniform))],
+                     dtype=torch.int32, device=dev))]
+    return out
+
+
+def packed_vs_plain(engine, layouts):
+    """Phase 5: sw_groups_packed against sw_groups_packed_ref on one group
+    of every bin, every launch of every layout.  Returns (max_abs_err,
+    kernel ms, plain ms, bound ms, bound by), the times summed over the
+    bins and launches of the first layout."""
+    from oswald_tpu_torch.kernels.sw_lanes import (sw_groups_packed,
+                                                   sw_groups_packed_ref)
+    st, cfg = engine.state, engine.config
+    table, firsts = first_groups(engine)
+    lanes = 8 * 128
+    worst, sums = 0, {}
+    say("layout, launch, segments, rows, kernel ms, plain ms (all bins)")
+    for name, launches in layouts.items():
+        s = sums.setdefault(name, [0.0, 0.0, 0, 0])
+        for li, (qp, segs) in enumerate(launches):
+            rows = int(segs[:, 1].sum())
+            k_sum = p_sum = 0.0
+            for gi in firsts:
+                grp = st.groups[gi:gi + 1].contiguous()
+                args = (st.residues, grp, qp, segs, engine.submat_dev,
+                        cfg.open_gap, cfg.extend_gap)
+                got, k_ms = timed(
+                    lambda: sw_groups_packed(*args, engine.scratch),
+                    TIMED_RUNS)
+                # the plain version is a launch-bound Python loop: one run
+                want, p_ms = wall_ms(lambda: sw_groups_packed_ref(*args))
+                err = int((got - want).abs().max())
+                worst = max(worst, err)
+                if err:
+                    raise AssertionError(
+                        f"sw_groups_packed differs from its plain version "
+                        f"by {err} on bin {table[gi, 1]}, layout {name}, "
+                        f"launch {li}")
+                k_sum += k_ms
+                p_sum += p_ms
+                L = int(table[gi, 1])
+                s[2] += L * lanes * rows
+                s[3] += (L * lanes + 8 + 4 * qp.numel() + 8 * len(segs) +
+                         4 * 24 * 24 + 4 * lanes * len(segs))
+            s[0] += k_sum
+            s[1] += p_sum
+            say(f"{name}, {li}, {len(segs)}, {rows}, {k_sum:.3f}, "
+                f"{p_sum:.1f}")
+        say(f"{name}: kernel {s[0]:.3f} ms, plain {s[1]:.1f} ms")
+    first = sums[next(iter(layouts))]
+    b_ms, b_by = bound(first[2], first[3])
+    say(f"{next(iter(layouts))}: bound {b_ms:.3f} ms (by {b_by})")
+    return worst, first[0], first[1], b_ms, b_by
+
+
+def same_hits(a, b):
+    return np.array_equal(a.scores, b.scores) and \
+        np.array_equal(a.seq_ids, b.seq_ids) and a.titles == b.titles
+
+
+def batched_path(engine, sets, stream_queries, card):
+    """Phase 6: search_many of each query set and search_stream, with the
+    kernels' launch counts set to 0 before each and read after.  Returns
+    {kernel: launches} summed over the batched and stream runs."""
+    from oswald_tpu_torch.engine.search import mixed_pack_plan
+    from oswald_tpu_torch.kernels import sw_lanes
+    from oswald_tpu_torch.utils.metrics import gcups
+    cfg, D = engine.config, engine.db.n_residues
+    total = {"sw_groups": 0, "sw_groups_packed": 0}
+    runs = TIMED_RUNS + 1
+
+    def drive(label, qs, fn, want_packed, want_plain, planted):
+        sw_lanes.launches = sw_lanes.launches_packed = 0
+        fn()                                                # warm-up
+        times = []
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            res = fn()
+            times.append(time.perf_counter() - t0)
+        got = (sw_lanes.launches_packed, sw_lanes.launches)
+        if got != (runs * want_packed, runs * want_plain):
+            raise AssertionError(
+                f"{label}: {got[0]} packed and {got[1]} sw_groups launches "
+                f"in {runs} runs, the plan gives {want_packed} and "
+                f"{want_plain} per run")
+        total["sw_groups_packed"] += got[0]
+        total["sw_groups"] += got[1]
+        # the same queries one by one: the results to hold the batch to,
+        # and the time to set beside it
+        singles, s_times = None, []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            singles = [engine.search(q) for q in qs]
+            s_times.append(time.perf_counter() - t0)
+        for i, (a, b) in enumerate(zip(singles, res)):
+            if not same_hits(a, b):
+                raise AssertionError(f"{label}: query {i} differs from its "
+                                     f"single search")
+        if planted is not None and (
+                res[planted].titles[0] != "planted_0" or
+                not res[planted].evalues[0] < 1e-3):
+            raise AssertionError(f"{label}: planted homolog not first for "
+                                 f"query {planted}: {res[planted].titles[0]}")
+        i = planted if planted is not None else 0
+        want = rescore_on_cpu(engine, qs[i], res[i])
+        if not np.array_equal(want, res[i].scores):
+            raise AssertionError(f"{label}: query {i} hit scores != CPU "
+                                 f"rescoring")
+        Q = sum(len(q) for q in qs)
+        sec, one = statistics.median(times), statistics.median(s_times[1:])
+        say(f"{label}: {len(qs)} queries, {Q} residues, "
+            f"{want_packed} packed + {want_plain} sw_groups launches: "
+            f"{sec:.4f} s = {gcups(Q, D, sec):.1f} GCUPS; one by one "
+            f"{one:.4f} s = {gcups(Q, D, one):.1f} GCUPS [{card}]")
+        return res
+
+    for label, qs, planted in sets:
+        bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows,
+                                     qs)
+        res = drive(f"batch {label}", qs, lambda: engine.search_many(qs),
+                    len(bins), len(rest), planted)
+        if any(r.batch_n != len(qs) or r.elapsed != res[0].elapsed
+               for r in res):
+            raise AssertionError(f"batch {label}: results do not share the "
+                                 f"batch's time and size")
+    drive(f"stream window {STREAM_WINDOW}", stream_queries,
+          lambda: engine.search_stream(stream_queries), 0,
+          len(stream_queries), None)
+    return total
+
+
+def packed_tail(engine, layout, card):
+    """The first packed launch over the whole database beside the same
+    launch over the longest bin alone (CUDA events)."""
+    from oswald_tpu_torch.kernels.sw_lanes import sw_groups_packed
+    st, cfg = engine.state, engine.config
+    qp, segs = layout[0]
+    table = st.groups.cpu().numpy()
+    longest = st.groups[torch.from_numpy(
+        table[:, 1] == table[:, 1].max()).to(st.groups.device)].contiguous()
+
+    def launch(groups):
+        return sw_groups_packed(st.residues, groups, qp, segs,
+                                engine.submat_dev, cfg.open_gap,
+                                cfg.extend_gap, engine.scratch)
+    _, all_ms = timed(lambda: launch(st.groups), TIMED_RUNS)
+    _, tail_ms = timed(lambda: launch(longest), TIMED_RUNS)
+    rows = int(segs[:, 1].sum())
+    b_ms, b_by = bound(st.residues.shape[0] * 1024 * rows,
+                       st.residues.numel())
+    say(f"sw_groups_packed over the whole database, {len(segs)} segments, "
+        f"{rows} rows: {all_ms:.2f} ms (bound {b_ms:.2f} ms by {b_by}); "
+        f"the {len(longest)} groups of L={int(table[:, 1].max())} alone: "
+        f"{tail_ms:.2f} ms [{card}]")
+
+
 def run(device, n_seqs, card, seed=SEED):
-    """Phases 2-4 on `device` (`card` labels the times); returns the
+    """Phases 2-6 on `device` (`card` labels the times); returns the
     kernels record."""
-    from oswald_tpu.utils.metrics import gcups
     from oswald_tpu_torch.engine import SearchConfig, SearchEngine
+    from oswald_tpu_torch.io.synth import realistic_residues
+    from oswald_tpu_torch.utils.metrics import gcups
     db, q_long, q_short = make_database(n_seqs, seed)
     t0 = time.perf_counter()
-    engine = SearchEngine(db, SearchConfig(), device=device)
+    engine = SearchEngine(
+        db, SearchConfig(stream_readback_window=STREAM_WINDOW), device=device)
     say(f"engine setup {time.perf_counter() - t0:.2f} s on {device}")
     queries = [(Q_LONG, q_long), (Q_SHORT, q_short)]
-    err, k_ms, p_ms = kernel_vs_plain(engine, queries)
+    err, k_ms, p_ms, b_ms, b_by = kernel_vs_plain(engine, queries)
     launches, results = main_path(engine, queries)
     if launches != len(queries) * (TIMED_RUNS + 1):
         raise AssertionError(f"{launches} sw_groups launches in "
@@ -221,13 +461,40 @@ def run(device, n_seqs, card, seed=SEED):
         say(f"search m={m}: {sec:.4f} s, "
             f"{gcups(m, db.n_residues, sec):.1f} GCUPS [{card}]")
     _, full_ms = timed(lambda: engine.score_all(q_long), TIMED_RUNS)
+    full_b, full_by = bound(engine.state.residues.shape[0] * 1024 * Q_LONG,
+                            engine.state.residues.numel())
     say(f"sw_groups over the whole database, m={Q_LONG}: {full_ms:.2f} ms "
-        f"({gcups(Q_LONG, db.n_residues, full_ms / 1e3):.1f} GCUPS) "
-        f"[{card}]")
-    return {"kernels": [{
-        "name": "sw_groups", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms}]}
+        f"({gcups(Q_LONG, db.n_residues, full_ms / 1e3):.1f} GCUPS; bound "
+        f"{full_b:.2f} ms by {full_by}) [{card}]")
+
+    # the batch queries come from their own generator, so the database
+    # stays the one the seed gives
+    rng = np.random.default_rng(seed + 1)
+    mixed = [q_long[:300]] + [
+        realistic_residues(rng, int(n))
+        for n in rng.integers(MIXED_LO, MIXED_HI + 1, N_MIXED - 1)]
+    longs = [q_long] + [realistic_residues(rng, Q_LONG)
+                        for _ in range(N_LONG_BATCH - 1)]
+    uniform = [realistic_residues(rng, Q_SHORT) for _ in range(N_UNIFORM)]
+    leftover = [q_short, realistic_residues(rng, Q_LEFTOVER), q_long[:200],
+                realistic_residues(rng, 120), realistic_residues(rng, 33)]
+    layouts = packed_layouts(engine, mixed, uniform)
+    perr, pk_ms, pp_ms, pb_ms, pb_by = packed_vs_plain(engine, layouts)
+    batch_launches = batched_path(
+        engine, [("mixed 100-400", mixed, 0), (f"{N_LONG_BATCH} x {Q_LONG}",
+                                               longs, 0),
+                 ("with a leftover", leftover, 2)], uniform, card)
+    packed_tail(engine, layouts["mixed"], card)
+    common = {"route": "cuda", "replaces": REPLACES, "library_ms": None}
+    return {"kernels": [
+        {"name": "sw_groups", "source": SOURCES["sw_groups"],
+         "launches": launches + batch_launches["sw_groups"],
+         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": b_ms, "bound_by": b_by, **common},
+        {"name": "sw_groups_packed", "source": SOURCES["sw_groups_packed"],
+         "launches": batch_launches["sw_groups_packed"],
+         "max_abs_err": perr, "ms": pk_ms, "plain_ms": pp_ms,
+         "bound_ms": pb_ms, "bound_by": pb_by, **common}]}
 
 
 def main():

@@ -1,16 +1,16 @@
 """oswald-tpu-torch: the oswald-tpu search engine on PyTorch and CUDA.
 
 The port of `oswald_tpu` (JAX/Pallas on a TPU) to an NVIDIA H100: plain
-PyTorch around one hand-written CUDA Smith-Waterman kernel
-(`kernels/csrc/sw_groups.cu`).  Device-free code (alphabet, substitution
-matrices, the `.oswt` database format, statistics) is shared with
-`oswald_tpu` by import; this package never imports jax.
+PyTorch around hand-written CUDA Smith-Waterman kernels (`kernels/csrc/`).
+The package stands alone: it keeps its own copy of the device-free code
+(alphabet, substitution matrices, the `.oswt` database format, statistics)
+and imports neither jax nor anything of `oswald_tpu`.
 """
 
 __version__ = "0.1.0"
 
-from oswald_tpu.alphabet import encode, decode, ALPHABET, DUMMY
-from oswald_tpu.submat import get_submat, MATRIX_NAMES
+from oswald_tpu_torch.alphabet import encode, decode, ALPHABET, DUMMY
+from oswald_tpu_torch.submat import get_submat, MATRIX_NAMES
 
 __all__ = [
     "encode", "decode", "ALPHABET", "DUMMY",

@@ -4,9 +4,10 @@
 -g -e -r surface and the engine flags) plus `--device`, and prints the same
 text report and `--json` lines.  Flags whose paths are not ported yet exit
 2 with a "not yet ported" error; the rest of oswald_tpu's subcommands
-(preprocess, serve, tune, cache) are not ported yet either —
-`python -m oswald_tpu.cli preprocess` writes the `.oswt` databases both
-packages read.
+(preprocess, serve, tune, cache) are not ported yet either.  The `.oswt`
+databases are those both packages read: `oswald_tpu_torch.io.preprocess_db`
+or `python -m oswald_tpu.cli preprocess` writes them.  A multi-query FASTA
+runs as one batch (packed launches) unless --no-batch is given.
 """
 
 import argparse
@@ -66,10 +67,14 @@ def _add_engine_args(sp):
                          "build/oswald_tpu_torch/)")
     sp.add_argument("--no-compile-cache", action="store_true",
                     help="accepted for compatibility")
-    sp.add_argument("--u-rows", type=int, default=8)
+    sp.add_argument("--u-rows", type=int, default=8,
+                    help="row quantum of the batch packing plan "
+                         "(default: 8)")
     sp.add_argument("--group-block", type=int, default=2)
     sp.add_argument("--col-unroll", type=int, default=32)
-    sp.add_argument("--stream-window", type=int, default=4)
+    sp.add_argument("--stream-window", type=int, default=4,
+                    help="queries of an unbatched stream read back from "
+                         "the device together (default: 4)")
 
 
 def _add_search_args(sp):
@@ -77,8 +82,9 @@ def _add_search_args(sp):
     sp.add_argument("-q", "--query", required=True,
                     help="query FASTA filename")
     sp.add_argument("--no-batch", action="store_true",
-                    help="search queries one at a time (the port always "
-                         "does)")
+                    help="search queries one at a time, each in its own "
+                         "launch, instead of packing them into batched "
+                         "launches")
     sp.add_argument("--trace", metavar="DIR", default=None,
                     help="device trace (not yet ported)")
     sp.add_argument("--metrics", action="store_true",
@@ -125,9 +131,10 @@ def cmd_search(args):
     if flag:
         raise _CLIError(f"{flag} is not yet ported")
     import torch
-    from oswald_tpu.io.db import load_db, load_queries
-    from oswald_tpu.submat import get_submat
-    from oswald_tpu.utils.metrics import gcups as _gcups
+    from oswald_tpu_torch.io.db import load_db, load_queries
+    from oswald_tpu_torch.stats import format_evalue
+    from oswald_tpu_torch.submat import get_submat
+    from oswald_tpu_torch.utils.metrics import gcups as _gcups
     from oswald_tpu_torch.engine import SearchEngine, SearchConfig
 
     with _user_errors():
@@ -196,7 +203,6 @@ def cmd_search(args):
         print(f"Query description: \t\t{res.query_title}")
         print(f"Query length:\t\t\t{res.query_length} residues")
         if res.evalues is not None:
-            from oswald_tpu.stats import format_evalue
             print("\nScore\tBits\tE-value\t\tSequence description")
             for sc, b, e, title in zip(res.scores, res.bit_scores,
                                        res.evalues, res.titles):

@@ -3,7 +3,14 @@
 One search is one `sw_groups` call over every group of the database (the
 CUDA kernel on a GPU, its plain PyTorch version on the CPU), then a masked
 top-k with the score moments appended, read back to the host once and
-turned into hits with E-values by the shared `oswald_tpu.stats`.
+turned into hits with E-values by `oswald_tpu_torch.stats`.
+
+A batch (`search_many`) packs whole queries into bins of at most
+`batch_query_pack_rows` rows (`mixed_pack_plan`) and scores each bin with
+one `sw_groups_packed` call; queries too long to pack run one `sw_groups`
+call each.  Every launch of the batch is queued before the first readback
+blocks, and each bin is read back once.  `search_stream` keeps queries
+apart but reads `stream_readback_window` of them back at a time.
 """
 
 import dataclasses
@@ -12,24 +19,27 @@ import time
 import numpy as np
 import torch
 
-from oswald_tpu.alphabet import DUMMY
-from oswald_tpu.submat import get_submat
-from oswald_tpu.io.db import PackedDB
-from oswald_tpu.stats import fit_score_model, tail_calibrate
-from oswald_tpu.utils.metrics import Metrics
+from oswald_tpu_torch.alphabet import DUMMY
+from oswald_tpu_torch.submat import get_submat
+from oswald_tpu_torch.io.db import PackedDB, db_len_stats
 from oswald_tpu_torch.io.device_db import to_device
-from oswald_tpu_torch.kernels.sw_lanes import sw_groups
+from oswald_tpu_torch.kernels.sw_lanes import sw_groups, sw_groups_packed
+from oswald_tpu_torch.stats import fit_score_model, tail_calibrate
+from oswald_tpu_torch.utils.metrics import Metrics
 
 
 @dataclasses.dataclass
 class SearchConfig:
     """The fields, defaults and validation of oswald_tpu's SearchConfig, so
-    the same flags pass through.  Fields that only shape the TPU schedule
-    or its memory modes (u_rows, group_block, col_unroll, the pad quanta,
-    interpret, acc_dtype, profile_mode, hbm_budget_bytes, host_stream_*,
-    batch_query_pack_rows, stream_readback_window, fused_dispatch) are
-    validated and change nothing here: the kernel takes the query at its
-    true length and accumulates in int32, with identical scores."""
+    the same flags pass through.  Three of the batch fields take effect:
+    batch_query_pack_rows (most rows of one packed launch; 0 packs
+    nothing), u_rows (the row quantum the packing plan counts in) and
+    stream_readback_window (queries of a stream read back together).
+    Fields that only shape the TPU schedule or its memory modes
+    (group_block, col_unroll, the pad quanta, interpret, acc_dtype,
+    profile_mode, hbm_budget_bytes, host_stream_*, fused_dispatch) are
+    validated and change nothing here: the kernels take each query at its
+    true length and accumulate in int32, with identical scores."""
     matrix: str = "blosum62"
     open_gap: int = 10
     extend_gap: int = 2
@@ -136,16 +146,6 @@ class SearchResult:
         return self.elapsed / max(self.batch_n, 1)
 
 
-def _db_len_stats(db):
-    """Per-sorted-id float32 ln-length table, its float64 (sum, sum^2),
-    and the (unique_lengths, counts) histogram for the E-value integral."""
-    lnl = np.log(np.maximum(np.asarray(db.lengths, np.float64),
-                            1.0)).astype(np.float32)
-    l64 = lnl.astype(np.float64)
-    hist = np.unique(np.asarray(db.lengths), return_counts=True)
-    return lnl, (float(l64.sum()), float((l64 * l64).sum())), hist
-
-
 # packed trailing moment columns: [sum, sumsq, slnl, T1] in row 0 and
 # [c0, c1, T0, 0] in row 1, float32 bit patterns in the int32 array
 MOM_COLS = 4
@@ -176,48 +176,52 @@ def _result_stats(db, lnl_table, lnl_mom, len_hist,
     return ev, bits, st
 
 
-def _append_moments(packed, scores_flat, valid, lnl):
+def _append_moments(packed, scores, valid, lnl):
     """Append MOM_COLS int32 columns holding the float32 score moments
     [sum(S), sum(S^2), sum(S*lnL), T1] / [c0, c1, T0, 0] over the valid
-    slots to a packed [2, k] top-k array, computed in float32 as the
-    reference does.  T0/T1 derive from the mean and sd without the top-k
-    (row 0); the counts include the hits."""
-    sf = torch.where(valid, scores_flat, 0).to(torch.float32)
+    slots to a packed [..., 2, k] top-k array, computed in float32 as the
+    reference does.  `scores` is [..., N] with the same leading batch
+    dimensions; every query of a batch gets its own moments.  T0/T1 derive
+    from the mean and sd without the top-k (row 0); the counts include the
+    hits."""
+    sf = torch.where(valid, scores, 0).to(torch.float32)
     n = valid.to(torch.float32).sum()
-    s1, s2 = sf.sum(), (sf * sf).sum()
-    slnl = (sf * lnl).sum()
-    top = packed[0].to(torch.float32)
+    s1, s2 = sf.sum(-1), (sf * sf).sum(-1)
+    slnl = (sf * lnl).sum(-1)
+    top = packed[..., 0, :].to(torch.float32)
     topv = top >= 0
     tf = torch.where(topv, top, 0.0)
-    n_ex = torch.clamp_min(n - topv.to(torch.float32).sum(), 1.0)
-    mean = (s1 - tf.sum()) / n_ex
-    var = torch.clamp_min((s2 - (tf * tf).sum()) / n_ex - mean * mean, 0.0)
+    n_ex = torch.clamp_min(n - topv.to(torch.float32).sum(-1), 1.0)
+    mean = (s1 - tf.sum(-1)) / n_ex
+    var = torch.clamp_min((s2 - (tf * tf).sum(-1)) / n_ex - mean * mean, 0.0)
     sd = torch.sqrt(var)
     t0 = torch.ceil(mean + TAIL_SDS0 * sd)
     t1 = torch.ceil(mean + TAIL_SDS * sd)
-    c0 = (valid & (sf >= t0)).to(torch.float32).sum()
-    c1 = (valid & (sf >= t1)).to(torch.float32).sum()
-    z = torch.zeros((), dtype=torch.float32, device=sf.device)
-    mom = torch.stack([s1, s2, slnl, t1, c0, c1, t0, z])
-    cols = mom.view(torch.int32).reshape(2, MOM_COLS)
-    return torch.cat([packed, cols], dim=1)
+    c0 = (valid & (sf >= t0[..., None])).to(torch.float32).sum(-1)
+    c1 = (valid & (sf >= t1[..., None])).to(torch.float32).sum(-1)
+    mom = torch.stack([s1, s2, slnl, t1, c0, c1, t0, torch.zeros_like(s1)],
+                      dim=-1)
+    cols = mom.view(torch.int32).reshape(mom.shape[:-1] + (2, MOM_COLS))
+    return torch.cat([packed, cols], dim=-1)
 
 
-def _topk(scores_flat, valid, lnl, k: int):
-    """Masked top-k packed as int32[2, k + MOM_COLS]: scores in row 0, slots
-    in row 1, moments in the last columns.  Ties go to the lowest slot, as
-    lax.top_k gives them: the order is taken over one int64 key per slot,
-    (score << 32) | (2^31 - 1 - slot), with padding slots at -1."""
-    slot = torch.arange(scores_flat.numel(), device=scores_flat.device,
+def _topk(scores, valid, lnl, k: int):
+    """Masked top-k packed as int32[..., 2, k + MOM_COLS]: scores in row 0,
+    slots in row 1, moments in the last columns.  `scores` is [..., N]; a
+    leading batch dimension gives each query its own top-k.  Ties go to the
+    lowest slot, as lax.top_k gives them: the order is taken over one int64
+    key per slot, (score << 32) | (2^31 - 1 - slot), with padding slots at
+    -1."""
+    slot = torch.arange(scores.shape[-1], device=scores.device,
                         dtype=torch.int64)
     key = torch.where(valid,
-                      (scores_flat.to(torch.int64) << 32) |
-                      ((1 << 31) - 1 - slot),
-                      torch.full_like(slot, -1))
-    top = torch.topk(key, k).values
+                      (scores.to(torch.int64) << 32) |
+                      ((1 << 31) - 1 - slot), -1)
+    top = torch.topk(key, k, dim=-1).values
     vals = (top >> 32).to(torch.int32)
     idx = ((1 << 31) - 1 - (top & 0xFFFFFFFF)).to(torch.int32)
-    return _append_moments(torch.stack([vals, idx]), scores_flat, valid, lnl)
+    return _append_moments(torch.stack([vals, idx], dim=-2), scores, valid,
+                           lnl)
 
 
 def _unpack_topk(arr):
@@ -253,6 +257,84 @@ def check_query(query, config: SearchConfig) -> np.ndarray:
     return q
 
 
+# segment slots per packed bin: caps the queries of one packed launch (its
+# score rows and the top-k fan-out scale with it) while letting a full
+# 1024-row bin hold 32 tiny queries
+MIXED_PACK_SEGS = 32
+
+
+def mixed_pack_plan(pack_rows: int, u_rows: int, queries,
+                    max_segs: int = MIXED_PACK_SEGS):
+    """First-fit-decreasing bin plan for a mixed-length query batch, value
+    for value that of oswald_tpu's mixed_pack_plan.
+
+    Packs whole queries, padded only to the u_rows row quantum, into bins
+    of at most pack_rows rows and max_segs queries; each bin runs as one
+    packed kernel launch.  A bin's row count is rounded up to a power of
+    two, never past pack_rows.
+
+    Returns (bins, rest): bins = [(idxs, q_packed int32[m_tot],
+    seg_map int32[m_tot // u_rows], used_blocks)] with idxs[s] the query in
+    segment slot s, seg_map the slot of every row block and used_blocks the
+    real (non-filler) row-block count; rest = indices of queries too long
+    to pack (> pack_rows rows), which run unpacked.
+    """
+    n = len(queries)
+    if not pack_rows or pack_rows // u_rows < 2 or n < 2:
+        return [], list(range(n))
+    r_cap = pack_rows // u_rows
+    qarrs = [np.asarray(q, np.int32) for q in queries]
+    for q in qarrs:
+        # the guard of check_query, which packed queries bypass
+        if q.size and (q.min() < 0 or q.max() > DUMMY):
+            raise ValueError(
+                "query contains codes outside 0..23 — encode residue "
+                "strings with oswald_tpu_torch.encode() first")
+    blocks = [max(1, -(-int(q.size) // u_rows)) for q in qarrs]
+    rest = [i for i in range(n) if blocks[i] > r_cap]
+    order = sorted((i for i in range(n) if blocks[i] <= r_cap),
+                   key=lambda i: (-blocks[i], i))
+    bins = []                        # [used_blocks, [query index, ...]]
+    for i in order:
+        for b in bins:
+            if b[0] + blocks[i] <= r_cap and len(b[1]) < max_segs:
+                b[0] += blocks[i]
+                b[1].append(i)
+                break
+        else:
+            bins.append([blocks[i], [i]])
+    out = []
+    for used, idxs in bins:
+        rb = min(r_cap, max(2, 1 << (used - 1).bit_length()))
+        qp = np.full(rb * u_rows, DUMMY, np.int32)
+        sm = np.empty(rb, np.int32)
+        off = 0
+        for s, i in enumerate(idxs):
+            qp[off * u_rows: off * u_rows + qarrs[i].size] = qarrs[i]
+            sm[off: off + blocks[i]] = s
+            off += blocks[i]
+        # trailing filler blocks: a fresh all-DUMMY slot when one is free,
+        # else they extend the last segment with DUMMY rows (score-inert
+        # either way)
+        sm[off:] = min(len(idxs), max_segs - 1)
+        out.append((idxs, qp, sm, off))
+    return out, rest
+
+
+def plan_segments(idxs, seg_map, used_blocks, u_rows, queries):
+    """int32[S, 2] (first row, row count) of each query of one plan bin in
+    its q_packed, as sw_groups_packed takes them: the first row block of
+    slot s in seg_map times u_rows, and the query's true length (1 for an
+    empty query: its one DUMMY row).  The DUMMY rows that pad a segment to
+    u_rows and the filler blocks past used_blocks get no rows."""
+    seg_map = np.asarray(seg_map)[:used_blocks]
+    segs = np.empty((len(idxs), 2), np.int32)
+    for s, i in enumerate(idxs):
+        segs[s] = (int(np.flatnonzero(seg_map == s)[0]) * u_rows,
+                   max(int(np.asarray(queries[i]).size), 1))
+    return segs
+
+
 class SearchEngine:
     """Searches one packed database with a fixed matrix and gap setting on
     one device.  device=None means CUDA and raises when there is none; CPU
@@ -286,7 +368,7 @@ class SearchEngine:
         self.scratch = torch.empty(
             (2,) + tuple(self.state.residues.shape), dtype=torch.int32,
             device=self.device) if self.device.type == "cuda" else None
-        self._lnl_by_id, self._lnl_mom, self._len_hist = _db_len_stats(db)
+        self._lnl_by_id, self._lnl_mom, self._len_hist = db_len_stats(db)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.metrics.add("engine_setup", time.perf_counter() - t_setup)
@@ -298,35 +380,80 @@ class SearchEngine:
                          self.submat_dev, self.config.open_gap,
                          self.config.extend_gap, self.scratch).reshape(-1)
 
-    def search(self, query, query_title: str = "query") -> SearchResult:
+    def _dispatch(self, query, query_title: str):
+        """Queue one query's search on the device without blocking; returns
+        a pending tuple for _finish."""
         t0 = time.perf_counter()
         k = min(self.config.top, self.db.n_seqs)
         packed = _topk(self.score_all(query), self.valid, self.lnl, k)
-        top_scores, top_slots, mom = _unpack_topk(
-            packed.cpu().numpy())                # the one readback
+        return query, query_title, t0, packed
+
+    def _result(self, query, query_title, top_scores, top_slots, mom):
+        """Hits with statistics from one query's unpacked readback."""
+        top_scores = np.asarray(top_scores)
+        # slot order preserves id order, so the lowest-slot tie-break is a
+        # lowest-id tie-break
         top_ids = self.ids_flat[np.asarray(top_slots)]
         qlen = int(np.asarray(query).size)
         ev, bits, st = _result_stats(
             self.db, self._lnl_by_id, self._lnl_mom, self._len_hist,
             top_scores, top_ids, mom, qlen)
-        elapsed = time.perf_counter() - t0
-        self.metrics.add("search", elapsed)
         return SearchResult(query_title=query_title, query_length=qlen,
                             scores=top_scores, seq_ids=top_ids,
                             titles=[self.db.title_of(int(i))
                                     for i in top_ids],
-                            elapsed=elapsed, evalues=ev, bit_scores=bits,
+                            elapsed=0.0, evalues=ev, bit_scores=bits,
                             stats=st)
 
+    def _finish(self, pend, host=None) -> SearchResult:
+        """Build a _dispatch's result from its packed array: `host` when a
+        window's readback already holds it, else this query's own blocking
+        readback."""
+        query, query_title, t0, packed = pend
+        if host is None:
+            host = packed.cpu().numpy()          # the one readback
+        res = self._result(query, query_title, *_unpack_topk(host))
+        res.elapsed = time.perf_counter() - t0
+        self.metrics.add("search", res.elapsed)
+        return res
+
+    def search(self, query, query_title: str = "query") -> SearchResult:
+        return self._finish(self._dispatch(query, query_title))
+
     def search_stream(self, queries, titles=None):
-        """Results for each query in turn: [search(q) for q in queries]."""
+        """Queries one by one, each alone in its launch, with the results
+        of [search(q) for q in queries].  The packed outputs of
+        stream_readback_window consecutive queries are stacked on the
+        device and read back once, after the next window has been queued,
+        so a readback waits behind work the device already has."""
         titles = titles or [f"query{i}" for i in range(len(queries))]
-        return [self.search(q, t) for q, t in zip(queries, titles)]
+        W = max(self.config.stream_readback_window, 1)
+        results, prev = [], None
+        for lo in range(0, len(queries), W):
+            grp = [self._dispatch(q, t)
+                   for q, t in zip(queries[lo:lo + W], titles[lo:lo + W])]
+            stacked = torch.stack([p[3] for p in grp])
+            if prev is not None:
+                results.extend(self._finish_group(*prev))
+            prev = (grp, stacked)
+        if prev is not None:
+            results.extend(self._finish_group(*prev))
+        return results
+
+    def _finish_group(self, grp, stacked):
+        """Finish one readback window: one blocking transfer of the stack,
+        then each query's result from its own rows."""
+        big = stacked.cpu().numpy()              # the one window readback
+        return [self._finish(p, big[i]) for i, p in enumerate(grp)]
 
     def search_many(self, queries, titles=None, batch: bool = True):
-        """Search a list of queries.  Every query runs as its own search
-        (batched programs are not ported yet), so `batch` does not change
-        the results; over-length queries fail before any search runs."""
+        """Search a list of queries.  With batch=True (default) queries are
+        packed into bins of at most batch_query_pack_rows rows, one
+        sw_groups_packed launch per bin over the whole database; queries
+        too long to pack run one sw_groups launch each.  batch=False, or a
+        single query, is search_stream.  Over-length queries fail before
+        any search runs."""
+        titles = titles or [f"query{i}" for i in range(len(queries))]
         cap = self.config.max_query_len
         for i, q in enumerate(queries):
             if np.asarray(q).size > cap:
@@ -335,4 +462,44 @@ class SearchEngine:
                     f"engine's configured max_query_len {cap} — rebuild "
                     f"with SearchConfig(max_query_len=...) / "
                     f"--max-query-len")
-        return self.search_stream(queries, titles)
+        if not batch or len(queries) <= 1:
+            return self.search_stream(queries, titles)
+
+        t0 = time.perf_counter()
+        results = [None] * len(queries)
+        k = min(self.config.top, self.db.n_seqs)
+        st, cfg = self.state, self.config
+        # two phases: every launch of the batch is queued before the first
+        # readback blocks
+        pending = []                     # (query indices, packed [Q, 2, .])
+        bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows,
+                                     queries)
+        for idxs, q_packed, seg_map, used in bins:
+            segs = plan_segments(idxs, seg_map, used, cfg.u_rows, queries)
+            scores = sw_groups_packed(
+                st.residues, st.groups,
+                torch.from_numpy(q_packed).to(self.device),
+                torch.from_numpy(segs).to(self.device), self.submat_dev,
+                cfg.open_gap, cfg.extend_gap, self.scratch)
+            pending.append((idxs, _topk(scores.reshape(len(idxs), -1),
+                                        self.valid, self.lnl, k)))
+        if rest:
+            # queries over the pack budget: one launch each, back to back
+            # on the stream, then one top-k and one readback for all
+            scores = torch.stack([self.score_all(queries[i]) for i in rest])
+            pending.append((rest, _topk(scores, self.valid, self.lnl, k)))
+
+        for idxs, packed in pending:
+            top_scores, top_slots, mom = _unpack_topk(packed.cpu().numpy())
+            for row, i in enumerate(idxs):
+                results[i] = self._result(
+                    queries[i], titles[i], top_scores[row], top_slots[row],
+                    tuple(m[row] for m in mom))
+        elapsed = time.perf_counter() - t0
+        self.metrics.add("search_batch", elapsed)
+        # every result carries the batch's wall time and batch_n: queries
+        # shared launches, so no per-query split exists
+        for r in results:
+            r.elapsed = elapsed
+            r.batch_n = len(queries)
+        return results

@@ -1,6 +1,6 @@
 """A packed database as the port's device state.
 
-`to_device` turns the shared host `PackedDB` (oswald_tpu.io.db, possibly
+`to_device` turns the host `PackedDB` (oswald_tpu_torch.io.db, possibly
 memory-mapped) into what `sw_groups` reads: every group of every bin back
 to back in one int8 column buffer, plus a table of (first column, L) per
 group.  Slots (one per lane) run in the same order as the JAX engine's:
@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from oswald_tpu.io.db import PackedDB, SUBLANES, LANES
+from oswald_tpu_torch.io.db import PackedDB, SUBLANES, LANES, db_len_stats
 
 
 @dataclasses.dataclass
@@ -28,8 +28,6 @@ class DeviceDB:
 
 
 def to_device(db: PackedDB, device) -> DeviceDB:
-    from oswald_tpu_torch.engine.search import _db_len_stats
-
     device = torch.device(device)
     n_cols = sum(int(db.bins[L]["seq"].shape[0]) * L
                  for L in db.bin_lengths)
@@ -47,7 +45,7 @@ def to_device(db: PackedDB, device) -> DeviceDB:
         ids.append(np.asarray(db.bins[L]["id"], np.int32).reshape(-1))
         col += G * L
     ids_flat = np.concatenate(ids) if ids else np.zeros(0, np.int32)
-    lnl_by_id = _db_len_stats(db)[0]
+    lnl_by_id = db_len_stats(db)[0]
     lnl_flat = np.where(
         ids_flat >= 0,
         lnl_by_id[np.maximum(ids_flat, 0)] if len(lnl_by_id) else 0.0,

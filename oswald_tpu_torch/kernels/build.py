@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
 Each kernel is one `csrc/<name>.cu` file with a plain C interface (no
-PyTorch headers, so nvcc takes seconds).  The shared library goes to
+PyTorch headers, so nvcc takes seconds); the `csrc/*.cuh` headers are
+shared by all of them.  The shared library goes to
 `build/oswald_tpu_torch/` at the repository root, named after a hash of the
 sources and flags, so an edited source builds anew and an unchanged one is
 reused by later processes.  Nothing here runs at import time.
@@ -29,6 +30,11 @@ SIGNATURES = {
         "sw_groups_launch": ([_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
                              _I),
         "sw_groups_error_string": ([_I], ctypes.c_char_p),
+    },
+    "sw_groups_packed": {
+        "sw_groups_packed_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+                                     _P, _P, _P, _P], _I),
+        "sw_groups_packed_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -80,6 +86,21 @@ def _compile(name: str, out: Path) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return proc.stdout + proc.stderr
+
+
+def build_all(names=None):
+    """Build every kernel library that has no build yet, one nvcc per
+    source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    with _lock:
+        todo = [(n, library_path(n)) for n in (names or sorted(SIGNATURES))]
+        todo = [(n, p) for n, p in todo if not p.exists()]
+        if not todo:
+            return
+        with ThreadPoolExecutor(len(todo)) as pool:
+            logs = list(pool.map(lambda np_: _compile(*np_), todo))
+        for (n, _), log in zip(todo, logs):
+            build_logs[n] = log
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,18 +12,8 @@
 // scores subject (row, t) alone, so the read of column j is 128 contiguous
 // bytes and no thread waits on another.
 //
-// Recurrence (the "fscan" form of sw_chunk; gap cost open + k * extend,
-// oe = open + extend, e = extend):
-//   cur' = max(diag + s, 0, E)
-//   H    = max(cur', F)
-//   F'   = max(F - e, cur' - oe)          (down the column)
-//   E'   = max(E - e, cur' - oe)          (along the row; the "noadj" update,
-//                                          exact for every matrix and gap
-//                                          pair, see oswald_tpu's noadj_ok)
-//   score = max over all cells of cur'
-// The plain PyTorch version (sw_lanes.sw_groups_ref) uses the classical
-// E' = max(E - e, H - oe), so comparing the two also checks that the
-// updates agree.
+// Recurrence: the cell update and the sweep of one strip are in sw_cell.cuh,
+// shared with sw_groups_packed.cu.
 //
 // Row strips.  The query is swept in strips of U rows.  A thread keeps H and
 // E of its U rows in registers and walks all L columns of its subject; H of
@@ -49,17 +39,11 @@
 // and launching the longest groups first so the last wave does not wait on
 // them.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sw_cell.cuh"
 
 namespace {
 
-constexpr int kGroupLanes = 1024;   // subjects per group ([8, 128])
-constexpr int kRowLanes = 128;      // subjects per block
-constexpr int kRowsPerGroup = kGroupLanes / kRowLanes;
-constexpr int kAlpha = 24;          // residue codes 0..23
-constexpr int kZeroRow = kAlpha;    // shared matrix row of zeros (padding)
-constexpr int kStripRows = 16;      // U: query rows held in registers
+using namespace sw;
 
 template <int U>
 __global__ void __launch_bounds__(kRowLanes)
@@ -71,10 +55,9 @@ sw_groups_kernel(const int8_t* __restrict__ db,
                  int32_t* __restrict__ scores) {
   extern __shared__ int32_t smem[];
   int32_t* sm = smem;                                // [25, 24]
-  int32_t* qoff = smem + (kAlpha + 1) * kAlpha;      // [m_pad]
+  int32_t* qoff = smem + kMatrixWords;               // [m_pad]
   const int m_pad = (m + U - 1) / U * U;
-  for (int i = threadIdx.x; i < (kAlpha + 1) * kAlpha; i += kRowLanes)
-    sm[i] = i < kAlpha * kAlpha ? submat[i] : 0;
+  load_matrix(sm, submat);
   for (int i = threadIdx.x; i < m_pad; i += kRowLanes)
     qoff[i] = (i < m ? query[i] : kZeroRow) * kAlpha;
   __syncthreads();
@@ -84,44 +67,15 @@ sw_groups_kernel(const int8_t* __restrict__ db,
   const size_t base = (size_t)groups[2 * g] * kGroupLanes +
                       (size_t)row * kRowLanes + threadIdx.x;
   const int L = groups[2 * g + 1];
-  const int8_t* res = db + base;
-  int32_t* hr = hrow + base;
-  int32_t* fr = frow + base;
 
   int32_t best = 0;
   for (int i0 = 0; i0 < m_pad; i0 += U) {
-    const bool first = i0 == 0;
-    const bool last = i0 + U >= m_pad;
-    int32_t qo[U], hl[U], ee[U];
+    int32_t qo[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      qo[u] = qoff[i0 + u];
-      hl[u] = 0;                    // H[i0 + u][j - 1]
-      ee[u] = 0;                    // E[i0 + u][j]
-    }
-    int32_t hprev = 0;              // H[i0 - 1][j - 1]
-    for (int j = 0; j < L; ++j) {
-      const size_t p = (size_t)j * kGroupLanes;
-      const int r = res[p];
-      const int32_t hup = first ? 0 : hr[p];    // H[i0 - 1][j]
-      int32_t f = first ? 0 : fr[p];            // F[i0][j]
-      int32_t diag = hprev;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int32_t cp = max(max(diag + sm[qo[u] + r], 0), ee[u]);
-        const int32_t c = cp - oe;
-        best = max(best, cp);
-        diag = hl[u];
-        hl[u] = max(cp, f);
-        ee[u] = max(ee[u] - e, c);
-        f = max(f - e, c);
-      }
-      if (!last) {
-        hr[p] = hl[U - 1];
-        fr[p] = f;
-      }
-      hprev = hup;
-    }
+    for (int u = 0; u < U; ++u) qo[u] = qoff[i0 + u];
+    // loads stay where they are used: prefetching them ran 5% slower here
+    best = sweep_strip<U, false>(db + base, hrow + base, frow + base, L, qo,
+                                 sm, oe, e, i0 == 0, i0 + U >= m_pad, best);
   }
   scores[(size_t)g * kGroupLanes + (size_t)row * kRowLanes + threadIdx.x] =
       best;
@@ -141,8 +95,7 @@ extern "C" int sw_groups_launch(const void* db, const void* groups,
   if (n_groups <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   (void)cudaGetLastError();   // drop a refused call's error from before
   const int m_pad = (m + U - 1) / U * U;
-  const size_t shmem = ((size_t)(kAlpha + 1) * kAlpha + m_pad) *
-                       sizeof(int32_t);
+  const size_t shmem = ((size_t)kMatrixWords + m_pad) * sizeof(int32_t);
   if (shmem > 48 * 1024) {
     // a query too long for the card's shared memory is refused here
     const cudaError_t err = cudaFuncSetAttribute(

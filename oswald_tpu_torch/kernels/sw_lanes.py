@@ -16,6 +16,14 @@ Inputs (all on one device, contiguous):
   scratch   int32[2, C, 8, 128] kernel scratch (CUDA only; allocated per
                                 call when None)
 Gap cost is open_gap + k * extend_gap.  Returns int32[G, 8, 128].
+
+`sw_groups_packed` is the port of `sw_chunk` with `q_segs > 1` and with
+`seg_map`: several independent queries packed along the rows and scored in
+one call.  It takes `q_packed int32[m_tot]` (the packed rows) and
+`segs int32[S, 2]` ((first row, row count) of each query in `q_packed`, on
+the same device) in place of `query`, and returns int32[S, G, 8, 128].  On
+a CUDA tensor it launches `csrc/sw_groups_packed.cu`; on a CPU tensor it
+runs `sw_groups_packed_ref`.
 """
 
 import torch
@@ -28,9 +36,11 @@ ALPHA_SIZE = 24
 # kernel launches made by sw_groups in this process (the wrapper adds one
 # per launch and nowhere else; callers reset it to count a run's launches)
 launches = 0
+# the same for sw_groups_packed
+launches_packed = 0
 
 
-def _check(residues, groups, query, submat, scratch):
+def _check(residues, groups, query, submat, scratch, segs=None):
     dev = residues.device
     named = {"residues": (residues, torch.int8),
              "groups": (groups, torch.int32),
@@ -38,6 +48,8 @@ def _check(residues, groups, query, submat, scratch):
              "submat": (submat, torch.int32)}
     if scratch is not None:
         named["scratch"] = (scratch, torch.int32)
+    if segs is not None:
+        named["segs"] = (segs, torch.int32)
     for name, (t, dtype) in named.items():
         if t.device != dev:
             raise ValueError(f"sw_groups: {name} is on {t.device}, "
@@ -47,6 +59,10 @@ def _check(residues, groups, query, submat, scratch):
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"sw_groups: {name} must be contiguous")
+    if segs is not None and (segs.dim() != 2 or segs.shape[1] != 2 or
+                             segs.shape[0] < 1):
+        raise ValueError(f"sw_groups: segs must be [S, 2] with S >= 1, got "
+                         f"{tuple(segs.shape)}")
     if residues.dim() != 3 or tuple(residues.shape[1:]) != GROUP_SHAPE:
         raise ValueError(f"sw_groups: residues must be [C, 8, 128], got "
                          f"{tuple(residues.shape)}")
@@ -93,6 +109,40 @@ def sw_groups(residues, groups, query, submat, open_gap: int,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "sw_groups", err)
     launches += 1
+    return out
+
+
+def sw_groups_packed(residues, groups, q_packed, segs, submat,
+                     open_gap: int, extend_gap: int, scratch=None):
+    """Scores of every segment of `q_packed` against every lane of every
+    group (see module): int32[S, G, 8, 128]."""
+    global launches_packed
+    _check(residues, groups, q_packed, submat, scratch, segs)
+    if residues.device.type == "cpu":
+        return sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
+                                    open_gap, extend_gap, scratch)
+    if residues.device.type != "cuda":
+        raise ValueError(f"sw_groups: no kernel for device "
+                         f"{residues.device}")
+    dev = residues.device
+    n, n_segs = groups.shape[0], segs.shape[0]
+    out = torch.empty((n_segs, n) + GROUP_SHAPE, dtype=torch.int32,
+                      device=dev)
+    if n == 0:
+        return out
+    if scratch is None:
+        scratch = torch.empty((2,) + tuple(residues.shape),
+                              dtype=torch.int32, device=dev)
+    lib = build.load("sw_groups_packed")
+    with torch.cuda.device(dev):
+        err = lib.sw_groups_packed_launch(
+            residues.data_ptr(), groups.data_ptr(), n, q_packed.data_ptr(),
+            q_packed.numel(), segs.data_ptr(), n_segs, submat.data_ptr(),
+            int(open_gap), int(extend_gap), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "sw_groups_packed", err)
+    launches_packed += 1
     return out
 
 
@@ -164,3 +214,19 @@ def sw_groups_ref(residues, groups, query, submat, open_gap: int,
         best = sw_lanes_ref(sub, query, submat, open_gap, extend_gap)
         out[idx] = best.reshape((len(items),) + GROUP_SHAPE)
     return out
+
+
+def sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
+                         open_gap: int, extend_gap: int, scratch=None):
+    """Plain PyTorch version of `sw_groups_packed`: `sw_groups_ref` on each
+    segment's rows in turn; `scratch` is ignored."""
+    _check(residues, groups, q_packed, submat, scratch, segs)
+    out = []
+    for s, (r0, n) in enumerate(segs.tolist()):
+        if r0 < 0 or n < 1 or r0 + n > q_packed.numel():
+            raise ValueError(f"sw_groups: segment {s} (row {r0}, {n} rows) "
+                             f"lies outside the {q_packed.numel()} packed "
+                             f"rows")
+        out.append(sw_groups_ref(residues, groups, q_packed[r0:r0 + n],
+                                 submat, open_gap, extend_gap))
+    return torch.stack(out)

@@ -1,9 +1,9 @@
 """The port's CLI against oswald_tpu's on a tiny FASTA database.
 
 `oswald-tpu-torch search --json --device cpu` must report the same hits as
-`oswald_tpu.cli search --json --no-batch` (the JAX CLI's per-query path;
-its batched path fits E-values differently and is compared once the port
-has batches).  Hits must be equal.  The queries are cut from database
+`oswald_tpu.cli search --json`, batched (a multi-query FASTA runs as packed
+launches on both sides) and with `--no-batch` (the per-query path).  Hits
+must be equal.  The queries are cut from database
 sequences, so their top hits score far above the rest, and there the one
 float32 ulp by which the two sides' sum(S * lnL) moments can differ (each
 reduces in its own order) moves lambda by about 1e-6 relative and
@@ -24,6 +24,16 @@ from oswald_tpu.cli import main as jax_main
 from oswald_tpu_torch.cli import main
 
 from conftest import random_protein
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain scorer's tensors are small: one thread is fastest, and the
+    test workers do not fight over the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -132,3 +142,66 @@ def test_info(capsys):
     out = capsys.readouterr().out
     assert out.startswith(f"PyTorch {torch.__version__}")
     assert "Devices (" in out
+
+
+def _hits(lines):
+    return [[(h["score"], h["id"], h["title"]) for h in q["hits"]]
+            for q in lines]
+
+
+def test_multi_query_batched_matches_jax_cli(fasta_db, capsys):
+    """The default (batched) path of both CLIs on a multi-query FASTA, and
+    the port's --no-batch path: the same hits, statistics at the module's
+    tolerance."""
+    args = ["search", "-q", str(fasta_db / "q.fasta"),
+            "-d", str(fasta_db / "db"), "-r", "6", "--json"]
+    assert jax_main(args + ["--devices", "1", "--no-compile-cache"]) == 0
+    want, _ = _json_lines(capsys.readouterr().out)
+    assert main(args + ["--device", "cpu", "--metrics"]) == 0
+    lines = [json.loads(line)
+             for line in capsys.readouterr().out.strip().splitlines()]
+    got, summary, metrics = lines[:-2], lines[-2]["summary"], lines[-1]
+    assert metrics["metrics"]["search_batch"]["count"] == 1
+    assert "search" not in metrics["metrics"]
+    assert main(args + ["--device", "cpu", "--no-batch", "--stream-window",
+                        "1", "--metrics"]) == 0
+    lines = [json.loads(line)
+             for line in capsys.readouterr().out.strip().splitlines()]
+    unbatched, metrics = lines[:-2], lines[-1]
+    assert metrics["metrics"]["search"]["count"] == 2
+    assert "search_batch" not in metrics["metrics"]
+    assert len(got) == len(want) == 2 and summary["n_queries"] == 2
+    assert _hits(got) == _hits(want) == _hits(unbatched)
+    for g, w, u in zip(got, want, unbatched):
+        assert (g["query"], g["length"]) == (w["query"], w["length"])
+        for other in (w, u):
+            np.testing.assert_allclose(
+                np.log([h["evalue"] for h in g["hits"]]),
+                np.log([h["evalue"] for h in other["hits"]]),
+                rtol=1e-5, atol=1e-4)
+            np.testing.assert_allclose([h["bits"] for h in g["hits"]],
+                                       [h["bits"] for h in other["hits"]],
+                                       atol=0.1 + 1e-9)
+
+
+def test_search_on_database_packed_by_the_port(fasta_db, tmp_path, capsys):
+    """A database written by oswald_tpu_torch.io.preprocess_db gives the
+    hits of the one written by the JAX CLI."""
+    from oswald_tpu_torch.io import preprocess_db
+    preprocess_db(str(fasta_db / "db.fasta"), str(tmp_path / "own"),
+                  verbose=False)
+    out = []
+    for path in (fasta_db / "db", tmp_path / "own"):
+        assert main(["search", "-q", str(fasta_db / "q.fasta"), "-d",
+                     str(path), "-r", "4", "--json", "--device", "cpu"]) == 0
+        out.append(_json_lines(capsys.readouterr().out)[0])
+    assert _hits(out[0]) == _hits(out[1])
+
+
+def test_help_describes_batching(capsys):
+    with pytest.raises(SystemExit):
+        main(["search", "--help"])
+    out = " ".join(capsys.readouterr().out.split())
+    assert "--no-batch" in out and "--stream-window" in out
+    assert "the port always does" not in out
+    assert "instead of packing them into batched launches" in out

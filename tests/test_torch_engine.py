@@ -1,8 +1,10 @@
 """oswald_tpu_torch's SearchEngine against oswald_tpu's on one database.
 
 Both engines search the same `pack_sequences` database (bin_cost=1, so
-each of its two groups is its own bin), the port on the CPU (plain PyTorch
-scorer), the reference with its Pallas kernel in interpret mode.  Scores,
+each of its two groups is its own bin), packed once by the JAX package and
+carried to the port by `from_reference`; the port runs on the CPU (plain
+PyTorch scorer), the reference with its Pallas kernel in interpret mode.
+Batches and streams are in tests/test_torch_batch.py.  Scores,
 ids and titles must be equal.  E-values and bit scores are held at rtol
 1e-5: they come from float32 score moments whose sum(S * lnL) term each
 side reduces in its own order (test_moments_match_jax bounds the
@@ -23,10 +25,20 @@ from oswald_tpu.engine.search import _topk as jax_topk
 from oswald_tpu.io import pack_sequences
 from oswald_tpu_torch.engine import SearchConfig, SearchEngine
 from oswald_tpu_torch.engine.search import _topk, _unpack_topk
-from oswald_tpu_torch.io import to_device
+from oswald_tpu_torch.io import from_reference, to_device
 from oswald_tpu_torch.kernels import sw_lanes
 
 from conftest import random_protein
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain scorer's tensors are small: one thread is fastest, and the
+    test workers do not fight over the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_SEQS = 1500
 TOP = 12
@@ -49,7 +61,8 @@ def engines():
     db = _make_db(np.random.default_rng(1))
     assert len(db.bin_lengths) >= 2
     return (db, JaxEngine(db, JaxConfig(top=TOP)),
-            SearchEngine(db, SearchConfig(top=TOP), device="cpu"))
+            SearchEngine(from_reference(db), SearchConfig(top=TOP),
+                         device="cpu"))
 
 
 def _assert_same_hits(a, b):
@@ -60,11 +73,11 @@ def _assert_same_hits(a, b):
     assert a.query_length == b.query_length
 
 
-def _assert_same_stats(a, b):
+def _assert_same_stats(a, b, rtol=1e-5):
     assert (a.evalues is None) == (b.evalues is None)
     if a.evalues is not None:
-        np.testing.assert_allclose(b.evalues, a.evalues, rtol=1e-5)
-        np.testing.assert_allclose(b.bit_scores, a.bit_scores, rtol=1e-5)
+        np.testing.assert_allclose(b.evalues, a.evalues, rtol=rtol)
+        np.testing.assert_allclose(b.bit_scores, a.bit_scores, rtol=rtol)
 
 
 @pytest.mark.parametrize("matrix,og,eg", [("blosum62", 10, 2),
@@ -73,8 +86,9 @@ def test_score_all_matches_jax(matrix, og, eg):
     db = _make_db(np.random.default_rng(2), n=1100, lmax=120)
     ref = JaxEngine(db, JaxConfig(matrix=matrix, open_gap=og,
                                   extend_gap=eg))
-    eng = SearchEngine(db, SearchConfig(matrix=matrix, open_gap=og,
-                                        extend_gap=eg), device="cpu")
+    eng = SearchEngine(from_reference(db),
+                       SearchConfig(matrix=matrix, open_gap=og,
+                                    extend_gap=eg), device="cpu")
     q = random_protein(np.random.default_rng(3), 45)
     want = np.asarray(ref.score_all(q))[np.asarray(ref.valid)]
     got = eng.score_all(q).numpy()[eng.valid.numpy()]
@@ -127,7 +141,8 @@ def test_tie_break_on_planted_duplicates():
                (6, other), (900, tail(other, 95)), (1300, tail(other, 100))]
     db = _make_db(rng, planted=planted)
     ref = JaxEngine(db, JaxConfig(top=TOP))
-    eng = SearchEngine(db, SearchConfig(top=TOP), device="cpu")
+    eng = SearchEngine(from_reference(db), SearchConfig(top=TOP),
+                       device="cpu")
     for query in (q, other):
         a, b = ref.search(query), eng.search(query)
         _assert_same_hits(a, b)
@@ -181,7 +196,7 @@ def test_search_many_and_stream_equal_search(engines):
 
 def test_to_device_slot_order_matches_jax(engines):
     db, ref, eng = engines
-    state = to_device(db, "cpu")
+    state = to_device(from_reference(db), "cpu")
     np.testing.assert_array_equal(state.ids_flat[state.ids_flat >= 0],
                                   ref.ids_flat[ref.ids_flat >= 0])
     np.testing.assert_array_equal(state.valid.numpy(), state.ids_flat >= 0)
@@ -237,3 +252,22 @@ def test_config_defaults_match_jax():
     ours = {f.name: f.default for f in dataclasses.fields(SearchConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     assert ours == theirs
+
+
+def test_batched_topk_equals_per_query_topk(engines):
+    """_topk with a leading batch dimension gives each row the packed
+    array of the one-dimensional call."""
+    _, _, eng = engines
+    rng = np.random.default_rng(12)
+    scores = torch.stack([eng.score_all(random_protein(rng, n))
+                          for n in (20, 45, 8)])
+    k = 7
+    batched = _topk(scores, eng.valid, eng.lnl, k)
+    assert tuple(batched.shape) == (3, 2, k + 4)
+    for row in range(3):
+        alone = _topk(scores[row], eng.valid, eng.lnl, k)
+        bs, bslot, bm = _unpack_topk(batched[row].numpy())
+        s, slot, m = _unpack_topk(alone.numpy())
+        np.testing.assert_array_equal(bs, s)
+        np.testing.assert_array_equal(bslot, slot)
+        np.testing.assert_allclose(bm, m, rtol=1e-6)

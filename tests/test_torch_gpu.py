@@ -1,9 +1,10 @@
-"""oswald_tpu_torch on a CUDA card: the sw_groups kernel against its plain
-version, and the CUDA engine against the CPU engine (tolerance: exact).
+"""oswald_tpu_torch on a CUDA card: the sw_groups and sw_groups_packed
+kernels against their plain versions, and the CUDA engine against the CPU
+engine (tolerance: exact).
 
 Every test is marked `gpu` and skips without a card.  The file imports
-neither jax nor the test conftest (which does), so on a machine with a card
-and no jax it runs as
+neither jax, nor oswald_tpu, nor the test conftest (which imports jax), so
+on a machine with a card and no jax it runs as
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_gpu.py
@@ -13,12 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from oswald_tpu.alphabet import DUMMY
-from oswald_tpu.io import pack_sequences
-from oswald_tpu.submat import get_submat
+from oswald_tpu_torch.alphabet import DUMMY
 from oswald_tpu_torch.engine import SearchConfig, SearchEngine
+from oswald_tpu_torch.engine.search import mixed_pack_plan, plan_segments
+from oswald_tpu_torch.io import pack_sequences
 from oswald_tpu_torch.kernels import sw_lanes
-from oswald_tpu_torch.kernels.sw_lanes import sw_groups, sw_groups_ref
+from oswald_tpu_torch.kernels.sw_lanes import (sw_groups, sw_groups_packed,
+                                               sw_groups_packed_ref,
+                                               sw_groups_ref)
+from oswald_tpu_torch.submat import get_submat
 
 pytestmark = pytest.mark.gpu
 
@@ -126,3 +130,131 @@ def test_cuda_engine_matches_cpu_engine(cuda):
             # order on the card
             np.testing.assert_allclose(np.log(b.evalues), np.log(a.evalues),
                                        rtol=1e-5, atol=1e-4)
+
+
+def _packed_inputs(rng, shapes, qlens, matrix, device, pack_rows=1024, u=8):
+    """(args of sw_groups_packed for every bin of the packing plan of
+    random queries of `qlens`, or for one uniform layout when pack_rows is
+    None)."""
+    res, table, _, sm = _inputs(rng, shapes, 1, matrix, device)
+    queries = [_protein(rng, n).astype(np.int32) for n in qlens]
+    if pack_rows is None:
+        m = qlens[0]
+        layouts = [(np.concatenate(queries),
+                    np.array([(i * m, m) for i in range(len(qlens))],
+                             np.int32))]
+    else:
+        bins, rest = mixed_pack_plan(pack_rows, u, queries)
+        assert not rest
+        layouts = [(qp, plan_segments(idxs, smap, used, u, queries))
+                   for idxs, qp, smap, used in bins]
+    return [(res, table, torch.from_numpy(qp).to(device),
+             torch.from_numpy(segs).to(device), sm)
+            for qp, segs in layouts]
+
+
+@pytest.mark.parametrize("qlens,pack_rows,matrix,og,eg", [
+    ([65] * 8, None, "blosum62", 10, 2),               # uniform segments
+    ([1, 16, 17, 32, 5], None, "pam30", 7, 1),         # ragged, packed tight
+    ([100, 173, 254, 399, 311, 47, 128, 222], 1024, "blosum62", 10, 2),
+    ([30, 0, 12, 64, 7], 256, "blosum62", 0, 0),       # an empty query
+    ([5000, 4000, 3200, 900], 16384, "pam30", 7, 1),   # > 48 KB shared
+])
+def test_packed_kernel_matches_plain_version(cuda, qlens, pack_rows, matrix,
+                                             og, eg):
+    rng = np.random.default_rng(len(qlens) * 1000 + qlens[0])
+    if pack_rows is None and len(set(qlens)) > 1:
+        # segments of unequal length back to back in one q_packed
+        res, table, _, sm = _inputs(rng, [(2, 32), (1, 224), (1, 96)], 1,
+                                    matrix, cuda)
+        q = _protein(rng, sum(qlens)).astype(np.int32)
+        starts = np.concatenate([[0], np.cumsum(qlens)[:-1]])
+        calls = [(res, table, torch.from_numpy(q).to(cuda),
+                  torch.tensor(list(zip(starts.tolist(), qlens)),
+                               dtype=torch.int32, device=cuda), sm)]
+    else:
+        calls = _packed_inputs(rng, [(2, 32), (1, 224), (1, 96)], qlens,
+                               matrix, cuda, pack_rows)
+    for res, table, qp, segs, sm in calls:
+        before = sw_lanes.launches_packed
+        got = sw_groups_packed(res, table, qp, segs, sm, og, eg)
+        torch.cuda.synchronize()
+        assert sw_lanes.launches_packed == before + 1
+        assert tuple(got.shape) == (segs.shape[0], table.shape[0], 8, 128)
+        want = sw_groups_packed_ref(res, table, qp, segs, sm, og, eg)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_packed_kernel_equals_single_query_kernel(cuda):
+    """Each segment's scores are those of sw_groups on that query alone,
+    with the engine's scratch shared by all segments."""
+    rng = np.random.default_rng(11)
+    (res, table, qp, segs, sm), = _packed_inputs(
+        rng, [(3, 64), (2, 160)], [40, 90, 17], "blosum62", cuda)
+    scratch = torch.empty((2,) + tuple(res.shape), dtype=torch.int32,
+                          device=cuda)
+    got = sw_groups_packed(res, table, qp, segs, sm, 10, 2, scratch)
+    for s, (r0, n) in enumerate(segs.tolist()):
+        alone = sw_groups(res, table, qp[r0:r0 + n].contiguous(), sm, 10, 2,
+                          scratch)
+        np.testing.assert_array_equal(got[s].cpu().numpy(),
+                                      alone.cpu().numpy())
+
+
+def test_refused_packed_launch_raises(cuda):
+    """Packed rows beyond the card's shared memory are refused; the wrapper
+    raises and counts no launch."""
+    rng = np.random.default_rng(12)
+    res, table, _, sm = _inputs(rng, [(1, 32)], 1, "blosum62", cuda)
+    qp = torch.zeros(60000, dtype=torch.int32, device=cuda)
+    segs = torch.tensor([[0, 30000], [30000, 30000]], dtype=torch.int32,
+                        device=cuda)
+    before = sw_lanes.launches_packed
+    with pytest.raises(RuntimeError,
+                       match="sw_groups_packed kernel launch failed"):
+        sw_groups_packed(res, table, qp, segs, sm, 10, 2)
+    assert sw_lanes.launches_packed == before
+
+
+def test_packed_mixed_devices_rejected(cuda):
+    rng = np.random.default_rng(13)
+    (res, table, qp, segs, sm), = _packed_inputs(
+        rng, [(1, 32)], [9, 20], "blosum62", cuda)
+    with pytest.raises(ValueError, match="segs is on cpu"):
+        sw_groups_packed(res, table, qp, segs.cpu(), sm, 10, 2)
+
+
+def test_cuda_search_many_matches_cpu(cuda):
+    """Packed bins, a leftover query over the pack budget, batch=False and
+    search_stream: the CUDA engine's results are the CPU engine's."""
+    rng = np.random.default_rng(14)
+    lengths = rng.integers(1, 400, size=2600)
+    seqs = [_protein(rng, int(n)) for n in lengths]
+    db = pack_sequences(np.concatenate(seqs), lengths,
+                        [f"s{i}" for i in range(len(seqs))], bin_cost=1)
+    cfg = SearchConfig(top=9, batch_query_pack_rows=256,
+                       stream_readback_window=3)
+    cpu = SearchEngine(db, cfg, device="cpu")
+    gpu = SearchEngine(db, cfg)
+    queries = [_protein(rng, n) for n in (30, 100, 0, 300, 64, 12, 200)]
+    bins, rest = mixed_pack_plan(256, cfg.u_rows, queries)
+    assert bins and rest
+    want = cpu.search_many(queries)
+    sw_lanes.launches = sw_lanes.launches_packed = 0
+    got = gpu.search_many(queries)
+    assert (sw_lanes.launches_packed, sw_lanes.launches) == \
+        (len(bins), len(rest))
+    runs = [got, gpu.search_many(queries, batch=False),
+            gpu.search_stream(queries)]
+    assert sw_lanes.launches == len(rest) + 2 * len(queries)
+    for run in runs:
+        for a, b in zip(want, run):
+            np.testing.assert_array_equal(a.scores, b.scores)
+            np.testing.assert_array_equal(a.seq_ids, b.seq_ids)
+            assert a.titles == b.titles
+            assert (a.evalues is None) == (b.evalues is None)
+            if a.evalues is not None:
+                np.testing.assert_allclose(np.log(b.evalues),
+                                           np.log(a.evalues), rtol=1e-5,
+                                           atol=1e-4)
+    assert all(r.batch_n == len(queries) for r in got)

@@ -1,5 +1,7 @@
-"""oswald_tpu_torch must never load jax: the machine with the GPU has none,
-and jax there could take device memory the port needs."""
+"""oswald_tpu_torch stands alone: it must never load jax (the machine with
+the GPU has none, and jax there could take device memory the port needs)
+nor any module of oswald_tpu (the port keeps its own copy of what it needs
+from that package)."""
 
 import os
 import re
@@ -14,35 +16,62 @@ import sys
 import numpy as np
 import oswald_tpu_torch
 from oswald_tpu_torch.engine import SearchEngine, SearchConfig
-from oswald_tpu_torch.io import to_device
-from oswald_tpu_torch.kernels import sw_groups, build
+from oswald_tpu_torch.io import to_device, pack_sequences, save_db, load_db
+from oswald_tpu_torch.io import synth
+from oswald_tpu_torch.kernels import sw_groups, sw_groups_packed, build
 from oswald_tpu_torch.cli import main
-from oswald_tpu.io import pack_sequences
+from oswald_tpu_torch import lab, stats
+from oswald_tpu_torch.utils import Metrics, gcups, hostmem
 rng = np.random.default_rng(0)
 lengths = rng.integers(5, 60, size=200)
 db = pack_sequences(rng.integers(0, 23, size=int(lengths.sum())).astype(
     np.int8), lengths, [f"s{i}" for i in range(200)])
-res = SearchEngine(db, SearchConfig(top=3), device="cpu").search(
-    oswald_tpu_torch.encode("MKVLATGHW"))
+engine = SearchEngine(db, SearchConfig(top=3, batch_query_pack_rows=64),
+                      device="cpu")
+res = engine.search(oswald_tpu_torch.encode("MKVLATGHW"))
 assert len(res.scores) == 3 and res.evalues is not None
-print("jax" in sys.modules, sorted(m for m in sys.modules
-                                   if m.startswith("jax"))[:5])
+queries = [rng.integers(0, 23, size=n).astype(np.int8)
+           for n in (9, 30, 100)]
+many = engine.search_many(queries)
+assert [r.batch_n for r in many] == [3, 3, 3]
+assert engine.metrics.count("search_batch") == 1
+assert len(engine.search_stream(queries)) == 3
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "oswald_tpu" or m.startswith("oswald_tpu."))
+print("loaded:", bad[:5])
 """
 
 
 def test_port_never_imports_jax():
-    env = dict(os.environ)
+    """A CPU search and a CPU batched search in a fresh interpreter load
+    neither jax nor oswald_tpu."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("False []"), out.stdout
+    assert out.stdout.strip().endswith("loaded: []"), out.stdout
+
+
+def _port_sources():
+    files = sorted((REPO / "oswald_tpu_torch").rglob("*.py"))
+    assert files
+    return files + [REPO / "chip_smoke.py"]
 
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
-    files = sorted((REPO / "oswald_tpu_torch").rglob("*.py"))
-    assert files
-    for path in files + [REPO / "chip_smoke.py"]:
+    for path in _port_sources():
+        assert not pat.search(path.read_text()), path
+
+
+def test_no_oswald_tpu_import_in_port_sources():
+    pat = re.compile(r"^\s*(import\s+oswald_tpu(\s|\.|,|$)"
+                     r"|from\s+oswald_tpu[\s.])", re.M)
+    assert pat.search("from oswald_tpu.io import db")
+    assert pat.search("    import oswald_tpu")
+    assert not pat.search("from oswald_tpu_torch.io import db")
+    for path in _port_sources():
         assert not pat.search(path.read_text()), path
