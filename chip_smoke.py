@@ -30,7 +30,30 @@ one nvcc per source, all started together), then:
    equal per-query search (scores and ids exact), launch counts must be the
    plan's, the planted homolog must rank first for its query, and one
    query per batch is rescored on the CPU.  Seconds and GCUPS of each batch
-   stand beside those of the same queries searched one by one.
+   stand beside those of the same queries searched one by one;
+7. lab kernel against plain version: every variant of sw_groups_lab on one
+   group of every bin at query length 512, held to the sw_groups_ref scores
+   of phase 3 (tolerance: exact), each variant's own plain version
+   (sw_groups_lab_ref) on the shortest bin, and every variant equal to
+   sw_groups over the whole database (lengths 512 and 65, the engine's gaps
+   and 11/1); then oswald_tpu_torch.lab.run_variants over the whole
+   database, with each column's loads where they are used and one column
+   ahead: one line per variant with milliseconds, Gcells/s, registers and
+   spills;
+8. host_stream main path: a second engine with profile_mode="host_stream"
+   on the same database and card.  Its score_all must equal the resident
+   engine's on every valid slot (lengths 512 and 65, three in a row each),
+   its searches the resident engine's hits (E-values at rtol 1e-4: float64
+   moments on the host against float32 ones on the card), with one kernel
+   launch per slice and launch of the call; one search_many of the 20 mixed
+   queries must equal the resident batch; host_stream_overlap=False must
+   give identical results; and profile_mode="auto" must resolve to
+   host_stream under a budget below the resident need and to precompute
+   with the card's own memory.  Search seconds and GCUPS of the overlapped
+   and the serial schedule stand beside the resident engine's, with setup
+   seconds, each engine's peak device memory beside the planner's
+   estimate, and where a host_stream search's time goes (kernels alone
+   slice by slice, the sweep, the host's top-k and moments).
 
 Every phase raises on failure (non-zero exit, no result line).  The
 second-to-last line is a JSON object with, for each kernel, its launches on
@@ -63,8 +86,10 @@ N_UNIFORM = 8
 STREAM_WINDOW = 4
 SOURCES = {"sw_groups": "oswald_tpu_torch/kernels/csrc/sw_groups.cu",
            "sw_groups_packed":
-               "oswald_tpu_torch/kernels/csrc/sw_groups_packed.cu"}
+               "oswald_tpu_torch/kernels/csrc/sw_groups_packed.cu",
+           "sw_groups_lab": "oswald_tpu_torch/kernels/csrc/sw_groups_lab.cu"}
 REPLACES = "oswald_tpu/kernels/sw_lanes.py:309"
+REPLACES_LAB = "scripts/kernel_lab.py:176"
 # H100 SXM data sheet: 3.35 TB/s of HBM; 67 TFLOP/s of float32 is 128 lanes
 # per SM doing one FMA (2 FLOP) per clock, and INT32 has half the lanes
 HBM_BYTES_PER_S = 3.35e12
@@ -128,6 +153,11 @@ def probe():
         log = build.build_logs.get(name)
         say(f"{name} {'built' if log is not None else 'loaded (built before)'}"
             f": {build.library_path(name)}")
+        if name == "sw_groups_lab":
+            from oswald_tpu_torch.kernels.sw_lab import ptxas_report
+            for label, used in sorted(ptxas_report(log).items()):
+                say(f"  ptxas: {label}: {used}")
+            continue
         for line in (log or "").splitlines():
             if "registers" in line or "spill" in line:
                 say("  ptxas: " + line.strip())
@@ -163,13 +193,14 @@ def first_groups(engine):
 
 def kernel_vs_plain(engine, queries):
     """Phase 3: sw_groups against sw_groups_ref on one group of every bin.
-    Returns (max_abs_err, kernel ms, plain ms, bound ms, bound by), the
-    times summed over the bins at the first query length."""
+    Returns (max_abs_err, kernel ms, plain ms, bound ms, bound by, wants):
+    the times summed over the bins at the first query length, and the plain
+    version's scores there, {group index: int32[1, 8, 128]}."""
     from oswald_tpu_torch.kernels.sw_lanes import sw_groups, sw_groups_ref
     st, dev = engine.state, engine.device
     table, firsts = first_groups(engine)
     cfg = engine.config
-    worst, sums = 0, {}
+    worst, sums, wants = 0, {}, {}
     say("bin L, query m, kernel ms, plain ms")
     for m, q in queries:
         qt = torch.as_tensor(q, dtype=torch.int32, device=dev)
@@ -182,6 +213,8 @@ def kernel_vs_plain(engine, queries):
             want, p_ms = timed(lambda: sw_groups_ref(*args), 1)
             err = int((got - want).abs().max())
             worst = max(worst, err)
+            if m == queries[0][0]:
+                wants[gi] = want
             s = sums.setdefault(m, [0.0, 0.0])
             s[0] += k_ms
             s[1] += p_ms
@@ -198,7 +231,7 @@ def kernel_vs_plain(engine, queries):
         cols * lanes * m,
         cols * lanes + len(firsts) * (8 + 4 * m + 4 * 24 * 24 + 4 * lanes))
     say(f"all bins, m={m}: bound {b_ms:.3f} ms (by {b_by})")
-    return worst, sums[m][0], sums[m][1], b_ms, b_by
+    return worst, sums[m][0], sums[m][1], b_ms, b_by, wants
 
 
 def rescore_on_cpu(engine, query, res):
@@ -439,20 +472,234 @@ def packed_tail(engine, layout, card):
         f"{tail_ms:.2f} ms [{card}]")
 
 
+def lab_vs_plain(engine, q_long, wants, card):
+    """Phase 7.  Returns (max_abs_err over all variants, {variant: ms
+    summed over one group of every bin}, {variant: ms over the whole
+    database} with each column's loads in place and the same with them a
+    column ahead, launches of run_variants)."""
+    from oswald_tpu_torch import lab
+    from oswald_tpu_torch.kernels import build, sw_lab
+    from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, sw_groups_lab,
+                                                 sw_groups_lab_ref)
+    st, cfg, dev = engine.state, engine.config, engine.device
+    table, firsts = first_groups(engine)
+    qt = torch.as_tensor(q_long, dtype=torch.int32, device=dev)
+    regs = sw_lab.ptxas_report(build.build_logs.get("sw_groups_lab"))
+    worst, bins_ms = 0, {}
+    for v in VARIANTS:
+        total = 0.0
+        for gi in firsts:
+            grp = st.groups[gi:gi + 1].contiguous()
+            got, ms = timed(lambda: sw_groups_lab(
+                st.residues, grp, qt, engine.submat_dev, cfg.open_gap,
+                cfg.extend_gap, v, engine.scratch), TIMED_RUNS)
+            err = int((got - wants[gi]).abs().max())
+            worst = max(worst, err)
+            if err:
+                raise AssertionError(
+                    f"sw_groups_lab {v} differs from sw_groups_ref by {err} "
+                    f"on bin {table[gi, 1]}, m={Q_LONG}")
+            total += ms
+        bins_ms[v] = total
+        say(f"lab {v}: one group of every bin, m={Q_LONG}: {total:.3f} ms, "
+            f"equal to the plain version; {regs.get(v, 'built before')}")
+    # each variant's own plain version, on the shortest bin
+    gi = firsts[0]
+    grp = st.groups[gi:gi + 1].contiguous()
+    for v in VARIANTS:
+        want, p_ms = wall_ms(lambda: sw_groups_lab_ref(
+            st.residues, grp, qt, engine.submat_dev, cfg.open_gap,
+            cfg.extend_gap, v))
+        if not torch.equal(want, wants[gi]):
+            raise AssertionError(f"sw_groups_lab_ref {v} differs from "
+                                 f"sw_groups_ref on bin {table[gi, 1]}")
+        say(f"lab {v}: sw_groups_lab_ref on bin {int(table[gi, 1])}, "
+            f"m={Q_LONG}: {p_ms:.1f} ms, equal")
+    bad = lab.check_variants(engine, list(VARIANTS), say)
+    if bad:
+        raise AssertionError(f"{bad} lab variant cases differ from "
+                             f"sw_groups over the whole database")
+    sw_lab.launches_lab = 0
+    whole_ms = lab.run_variants(engine, list(VARIANTS), Q_LONG, card, say)
+    ahead_ms = lab.run_variants(engine, list(VARIANTS), Q_LONG, card, say,
+                                load_ahead=True)
+    return worst, bins_ms, whole_ms, ahead_ms, sw_lab.launches_lab
+
+
+def host_stream_breakdown(engine, hs, queries, card):
+    """Where a host_stream search's time goes: the kernels alone, launched
+    slice by slice on the resident engine's copy of the same groups (CUDA
+    events); the whole sweep, with fills, copies and drains (host clock);
+    and the host's top-k and moments."""
+    from oswald_tpu_torch.engine.search import check_query
+    from oswald_tpu_torch.kernels.sw_lanes import sw_groups
+    st, cfg = engine.state, engine.config
+    k = min(cfg.top, engine.db.n_seqs)
+    tables = [st.groups[sl.slot0 // 1024:
+                        sl.slot0 // 1024 + sl.groups.shape[0]].contiguous()
+              for sl in hs._hs_slices]
+    for m, q in queries:
+        qc = check_query(q, cfg)
+        qt = torch.from_numpy(qc).to(engine.device)
+
+        def sliced():
+            for table in tables:
+                sw_groups(st.residues, table, qt, engine.submat_dev,
+                          cfg.open_gap, cfg.extend_gap, engine.scratch)
+        _, kernels_ms = timed(sliced, TIMED_RUNS)
+        sweeps, reduces = [], []
+        for _ in range(TIMED_RUNS):
+            scores, ms = wall_ms(lambda: hs._host_stream_scores(qc))
+            sweeps.append(ms)
+            t0 = time.perf_counter()
+            hs._host_reduce(scores[None], k)
+            reduces.append((time.perf_counter() - t0) * 1e3)
+        say(f"host_stream m={m}: kernels alone, slice by slice "
+            f"{kernels_ms:.2f} ms; sweep {statistics.median(sweeps):.2f} ms; "
+            f"host top-k and moments {statistics.median(reduces):.2f} ms "
+            f"[{card}]")
+
+
+def host_stream_path(db, engine, queries, mixed, card, resident_peak):
+    """Phase 8.  Returns {kernel: launches} of the host_stream engines'
+    searches."""
+    from oswald_tpu_torch.engine import SearchConfig, SearchEngine
+    from oswald_tpu_torch.engine import planner
+    from oswald_tpu_torch.engine.search import mixed_pack_plan
+    from oswald_tpu_torch.kernels import sw_lanes
+    from oswald_tpu_torch.utils.metrics import gcups
+    dev, D = engine.device, db.n_residues
+    mib = 1 << 20
+    valid = engine.valid
+    want_scores = {m: engine.score_all(q)[valid] for m, q in queries}
+    want_hits = {m: engine.search(q) for m, q in queries}
+    want_batch = engine.search_many(mixed)
+    bins, rest = mixed_pack_plan(engine.config.batch_query_pack_rows,
+                                 engine.config.u_rows, mixed)
+    Q = sum(len(q) for q in mixed)
+    total = {"sw_groups": 0, "sw_groups_packed": 0}
+
+    def same_stats(a, b, what):
+        if not same_hits(a, b):
+            raise AssertionError(f"{what}: hits differ from the resident "
+                                 f"engine's")
+        if not np.allclose(a.evalues, b.evalues, rtol=1e-4, atol=0):
+            raise AssertionError(f"{what}: E-values differ beyond rtol 1e-4")
+
+    def drive(label, **kw):
+        """Build a host_stream engine and hold every result of it to the
+        resident engine's; returns (engine, peak device bytes)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        hs = SearchEngine(db, SearchConfig(profile_mode="host_stream", **kw),
+                          device=dev)
+        setup_s = time.perf_counter() - t0
+        slices = hs._hs_slices
+        if len(slices) < 2 or not any(len(s.spans) > 1 for s in slices):
+            raise AssertionError(
+                f"host_stream cut {len(slices)} slices, none of several "
+                f"spans: nothing to overlap")
+        say(f"host_stream {label}: {len(slices)} slices of at most "
+            f"{max(s.n_bytes for s in slices) / 1e6:.1f} MB, "
+            f"{sum(len(s.spans) for s in slices)} spans, setup "
+            f"{setup_s:.2f} s [{card}]")
+        if not np.array_equal(hs.ids_flat, engine.ids_flat):
+            raise AssertionError("host_stream slots differ from the "
+                                 "resident engine's")
+        sw_lanes.launches = sw_lanes.launches_packed = 0
+        searches = 0
+        for m, q in queries:
+            for _ in range(3):
+                if not torch.equal(hs.score_all(q)[valid], want_scores[m]):
+                    raise AssertionError(
+                        f"host_stream {label}: score_all differs from the "
+                        f"resident engine's at m={m}")
+            hs.search(q)                                    # warm-up
+            ts = []
+            for _ in range(TIMED_RUNS):
+                t0 = time.perf_counter()
+                res = hs.search(q)
+                ts.append(time.perf_counter() - t0)
+                same_stats(want_hits[m], res, f"host_stream {label} m={m}")
+            searches += 3 + 1 + TIMED_RUNS
+            sec = statistics.median(ts)
+            say(f"host_stream {label} search m={m}: {sec:.4f} s, "
+                f"{gcups(m, D, sec):.1f} GCUPS [{card}]")
+        if (sw_lanes.launches, sw_lanes.launches_packed) != \
+                (len(slices) * searches, 0):
+            raise AssertionError(
+                f"host_stream {label}: {sw_lanes.launches} sw_groups "
+                f"launches in {searches} searches over {len(slices)} slices")
+        total["sw_groups"] += sw_lanes.launches
+        sw_lanes.launches = sw_lanes.launches_packed = 0
+        t0 = time.perf_counter()
+        got = hs.search_many(mixed)
+        sec = time.perf_counter() - t0
+        for i, (a, b) in enumerate(zip(want_batch, got)):
+            same_stats(a, b, f"host_stream {label} batch query {i}")
+        if (sw_lanes.launches_packed, sw_lanes.launches) != \
+                (len(slices) * len(bins), len(slices) * len(rest)):
+            raise AssertionError(
+                f"host_stream {label} batch: {sw_lanes.launches_packed} "
+                f"packed and {sw_lanes.launches} sw_groups launches; "
+                f"{len(slices)} slices x ({len(bins)} + {len(rest)}) plan "
+                f"launches")
+        total["sw_groups"] += sw_lanes.launches
+        total["sw_groups_packed"] += sw_lanes.launches_packed
+        say(f"host_stream {label} batch mixed 100-400: {len(mixed)} "
+            f"queries, {Q} residues, {len(bins)} packed launches x "
+            f"{len(slices)} slices: {sec:.4f} s = {gcups(Q, D, sec):.1f} "
+            f"GCUPS (one run) [{card}]")
+        torch.cuda.synchronize()
+        return hs, torch.cuda.max_memory_allocated() - base
+
+    hs, hs_peak = drive("overlap")
+    big = max(hs._hs_slices, key=lambda s: s.n_bytes)
+    hs_plan = planner.host_stream_bytes(big.n_bytes, big.n_slots)
+    host_stream_breakdown(engine, hs, queries, card)
+    del hs
+    drive("serial", host_stream_overlap=False)
+    plan = planner.plan_profile_mode(db, planner.device_hbm_bytes(dev),
+                                     config=engine.config)
+    say(f"peak device memory: resident engine {resident_peak / mib:.1f} MiB "
+        f"(planner: {plan.resident_bytes / mib:.1f} MiB); host_stream "
+        f"engine {hs_peak / mib:.1f} MiB (planner: {hs_plan / mib:.1f} MiB) "
+        f"[{card}]")
+
+    def auto_mode(**kw):
+        return SearchEngine(db, SearchConfig(profile_mode="auto", **kw),
+                            device=dev).mode
+
+    mode = auto_mode(hbm_budget_bytes=plan.resident_bytes // 2)
+    if mode != "host_stream":
+        raise AssertionError(f"auto under half the resident need resolved "
+                             f"to {mode}")
+    mode = auto_mode()
+    if mode != "precompute":
+        raise AssertionError(f"auto with the card's memory resolved to "
+                             f"{mode}")
+    return total
+
+
 def run(device, n_seqs, card, seed=SEED):
-    """Phases 2-6 on `device` (`card` labels the times); returns the
+    """Phases 2-8 on `device` (`card` labels the times); returns the
     kernels record."""
     from oswald_tpu_torch.engine import SearchConfig, SearchEngine
     from oswald_tpu_torch.io.synth import realistic_residues
     from oswald_tpu_torch.utils.metrics import gcups
     db, q_long, q_short = make_database(n_seqs, seed)
+    mem_base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     engine = SearchEngine(
         db, SearchConfig(stream_readback_window=STREAM_WINDOW), device=device)
     say(f"engine setup {time.perf_counter() - t0:.2f} s on {device}")
     queries = [(Q_LONG, q_long), (Q_SHORT, q_short)]
-    err, k_ms, p_ms, b_ms, b_by = kernel_vs_plain(engine, queries)
+    err, k_ms, p_ms, b_ms, b_by, wants = kernel_vs_plain(engine, queries)
+    torch.cuda.reset_peak_memory_stats()
     launches, results = main_path(engine, queries)
+    resident_peak = torch.cuda.max_memory_allocated() - mem_base
     if launches != len(queries) * (TIMED_RUNS + 1):
         raise AssertionError(f"{launches} sw_groups launches in "
                              f"{len(queries) * (TIMED_RUNS + 1)} searches")
@@ -480,21 +727,48 @@ def run(device, n_seqs, card, seed=SEED):
                 realistic_residues(rng, 120), realistic_residues(rng, 33)]
     layouts = packed_layouts(engine, mixed, uniform)
     perr, pk_ms, pp_ms, pb_ms, pb_by = packed_vs_plain(engine, layouts)
+    torch.cuda.reset_peak_memory_stats()
     batch_launches = batched_path(
         engine, [("mixed 100-400", mixed, 0), (f"{N_LONG_BATCH} x {Q_LONG}",
                                                longs, 0),
                  ("with a leftover", leftover, 2)], uniform, card)
+    resident_peak = max(resident_peak,
+                        torch.cuda.max_memory_allocated() - mem_base)
     packed_tail(engine, layouts["mixed"], card)
-    common = {"route": "cuda", "replaces": REPLACES, "library_ms": None}
+    lerr, lab_bins_ms, lab_whole_ms, lab_ahead_ms, lab_launches = \
+        lab_vs_plain(engine, q_long, wants, card)
+    fastest = min(lab_whole_ms, key=lab_whole_ms.get)
+    hs_launches = host_stream_path(db, engine, queries, mixed, card,
+                                   resident_peak)
+    common = {"route": "cuda", "library_ms": None}
     return {"kernels": [
         {"name": "sw_groups", "source": SOURCES["sw_groups"],
-         "launches": launches + batch_launches["sw_groups"],
+         "replaces": REPLACES,
+         "launches": launches + batch_launches["sw_groups"] +
+         hs_launches["sw_groups"],
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": b_ms, "bound_by": b_by, **common},
         {"name": "sw_groups_packed", "source": SOURCES["sw_groups_packed"],
-         "launches": batch_launches["sw_groups_packed"],
+         "replaces": REPLACES,
+         "launches": batch_launches["sw_groups_packed"] +
+         hs_launches["sw_groups_packed"],
          "max_abs_err": perr, "ms": pk_ms, "plain_ms": pp_ms,
-         "bound_ms": pb_ms, "bound_by": pb_by, **common}]}
+         "bound_ms": pb_ms, "bound_by": pb_by, **common},
+        # the lab kernel does sw_groups' work on sw_groups' inputs: phase
+        # 3's plain time and bound stand for it.  `variant` is the fastest
+        # over the whole database; `ms` is its time summed over one group
+        # of every bin, as for sw_groups; `variants` holds every variant's
+        # time over the whole database and `variants_bins_ms` every
+        # variant's time summed over one group of every bin (all with each
+        # column's loads where they are used); `variants_load_ahead` is
+        # `variants` with the loads one column ahead
+        {"name": "sw_groups_lab", "source": SOURCES["sw_groups_lab"],
+         "replaces": REPLACES_LAB, "launches": lab_launches,
+         "max_abs_err": lerr, "variant": fastest,
+         "ms": lab_bins_ms[fastest], "plain_ms": p_ms, "bound_ms": b_ms,
+         "bound_by": b_by, "variants": lab_whole_ms,
+         "variants_bins_ms": lab_bins_ms,
+         "variants_load_ahead": lab_ahead_ms, **common}]}
 
 
 def main():

@@ -2,9 +2,14 @@
 
 `search` takes the flags of oswald_tpu's `search` (the reference's -q -d -s
 -g -e -r surface and the engine flags) plus `--device`, and prints the same
-text report and `--json` lines.  Flags whose paths are not ported yet exit
-2 with a "not yet ported" error; the rest of oswald_tpu's subcommands
-(preprocess, serve, tune, cache) are not ported yet either.  The `.oswt`
+text report and `--json` lines.  `--profile-mode` picks where the database
+lives (auto, precompute and stream: resident on the device; host_stream:
+on the host, streamed through the device on every search), and
+`--hbm-budget-mb` is the device memory that `auto` plans for; the engine
+announces an `auto` plan on stderr, so `--json` output stays clean.  Flags
+whose paths are not ported yet exit 2 with a "not yet ported" error; the
+rest of oswald_tpu's subcommands (preprocess, serve, tune, cache) are not
+ported yet either.  The `.oswt`
 databases are those both packages read: `oswald_tpu_torch.io.preprocess_db`
 or `python -m oswald_tpu.cli preprocess` writes them.  A multi-query FASTA
 runs as one batch (packed launches) unless --no-batch is given.
@@ -54,12 +59,16 @@ def _add_engine_args(sp):
     sp.add_argument("--profile-mode",
                     choices=("auto", "precompute", "stream", "host_stream"),
                     default="auto",
-                    help="accepted for compatibility: the database is "
-                         "always device-resident (host_stream is not yet "
-                         "ported)")
+                    help="where the database lives: auto picks the most "
+                         "resident mode that fits the device's memory; "
+                         "precompute and stream keep it on the device "
+                         "(one path here: the kernels need no profile); "
+                         "host_stream keeps it on the host and streams it "
+                         "through the device on every search, for "
+                         "databases larger than device memory")
     sp.add_argument("--hbm-budget-mb", type=int, default=None,
-                    help="accepted for compatibility (no memory planner "
-                         "yet)")
+                    help="device memory, in MiB, that --profile-mode auto "
+                         "plans for (default: the device's own)")
     sp.add_argument("--max-query-len", type=int, default=5478,
                     help="longest accepted query (default: 5478)")
     sp.add_argument("--compile-cache", metavar="DIR", default=None,
@@ -118,9 +127,7 @@ def _not_ported(args):
                         ("-H/--histogram", args.histogram),
                         ("--trace", args.trace is not None),
                         ("--distributed", args.distributed),
-                        ("--devices > 1", (args.devices or 1) > 1),
-                        ("--profile-mode host_stream",
-                         args.profile_mode == "host_stream")):
+                        ("--devices > 1", (args.devices or 1) > 1)):
         if given:
             return flag
     return None

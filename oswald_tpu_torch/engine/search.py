@@ -11,9 +11,17 @@ one `sw_groups_packed` call; queries too long to pack run one `sw_groups`
 call each.  Every launch of the batch is queued before the first readback
 blocks, and each bin is read back once.  `search_stream` keeps queries
 apart but reads `stream_readback_window` of them back at a time.
+
+`profile_mode` picks where the database lives.  `precompute` and `stream`
+are the one resident path above (the kernels read the 24x24 matrix, so
+there is no profile to precompute); `host_stream` keeps the database on the
+host and streams it through the device in slices on every call, each slice
+scored by every launch of the call, with the top-k and the moments taken on
+the host; `auto` asks `engine.planner` which of the two fits the device.
 """
 
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -22,7 +30,10 @@ import torch
 from oswald_tpu_torch.alphabet import DUMMY
 from oswald_tpu_torch.submat import get_submat
 from oswald_tpu_torch.io.db import PackedDB, db_len_stats
-from oswald_tpu_torch.io.device_db import to_device
+from oswald_tpu_torch.io.device_db import (fill_slice, to_device,
+                                           to_host_stream)
+from oswald_tpu_torch.engine.planner import (device_hbm_bytes,
+                                             plan_profile_mode)
 from oswald_tpu_torch.kernels.sw_lanes import sw_groups, sw_groups_packed
 from oswald_tpu_torch.stats import fit_score_model, tail_calibrate
 from oswald_tpu_torch.utils.metrics import Metrics
@@ -31,15 +42,19 @@ from oswald_tpu_torch.utils.metrics import Metrics
 @dataclasses.dataclass
 class SearchConfig:
     """The fields, defaults and validation of oswald_tpu's SearchConfig, so
-    the same flags pass through.  Three of the batch fields take effect:
-    batch_query_pack_rows (most rows of one packed launch; 0 packs
-    nothing), u_rows (the row quantum the packing plan counts in) and
-    stream_readback_window (queries of a stream read back together).
-    Fields that only shape the TPU schedule or its memory modes
-    (group_block, col_unroll, the pad quanta, interpret, acc_dtype,
-    profile_mode, hbm_budget_bytes, host_stream_*, fused_dispatch) are
-    validated and change nothing here: the kernels take each query at its
-    true length and accumulate in int32, with identical scores."""
+    the same flags pass through.  These take effect: the scoring fields
+    (matrix, gaps, top, max_query_len); batch_query_pack_rows (most rows of
+    one packed launch; 0 packs nothing), u_rows (the row quantum the
+    packing plan counts in) and stream_readback_window (queries of a stream
+    read back together); profile_mode (auto, or precompute and stream for
+    the resident database, or host_stream), hbm_budget_bytes (the device
+    memory `auto` plans for, in place of the card's own),
+    host_stream_slice_mb (most bytes of one streamed slice) and
+    host_stream_overlap (False: copy, wait, score, wait, slice by slice).
+    Fields that only shape the TPU schedule (group_block, col_unroll, the
+    pad quanta, interpret, acc_dtype, fused_dispatch) are validated and
+    change nothing here: the kernels take each query at its true length
+    and accumulate in int32, with identical scores."""
     matrix: str = "blosum62"
     open_gap: int = 10
     extend_gap: int = 2
@@ -116,9 +131,8 @@ class SearchConfig:
         if not (1 <= self.host_stream_slice_mb <= 2048):
             raise ValueError(
                 f"host_stream_slice_mb must be in [1, 2048], got "
-                f"{self.host_stream_slice_mb!r} (span byte offsets are "
-                "int32 device operands, so a slice buffer must stay "
-                "under 2 GiB)")
+                f"{self.host_stream_slice_mb!r} (a slice's group table "
+                "holds int32 column offsets)")
         if not (isinstance(self.stream_readback_window, int) and
                 self.stream_readback_window >= 1):
             raise ValueError(
@@ -235,6 +249,46 @@ def _unpack_topk(arr):
     return arr[..., 0, :-MOM_COLS], arr[..., 1, :-MOM_COLS], m
 
 
+def _host_topk(scores_flat, ids_flat, k):
+    """Top-k on the host with `_topk`'s order (score descending, ties to the
+    lowest slot, padding slots at -1): host_stream scores are already in
+    host memory.  The order is taken over the same int64 key per slot, so
+    np.partition finds the k largest in linear time and only those are
+    sorted.  Returns (scores int32[k], slots int64[k])."""
+    n = scores_flat.shape[0]
+    masked = np.where(ids_flat >= 0, scores_flat, -1).astype(np.int64)
+    key = (masked << 32) | ((1 << 31) - 1 - np.arange(n, dtype=np.int64))
+    top = np.sort(np.partition(key, n - k)[n - k:])[::-1]
+    return ((top >> 32).astype(np.int32),
+            (1 << 31) - 1 - (top & 0xFFFFFFFF))
+
+
+def _host_moments(scores_flat, valid_mask, lnl_flat, top_scores):
+    """The moments and tail counts of `_append_moments` over scores that
+    are already on the host, in float64.  scores_flat: [n] or [Q, n];
+    top_scores the reported hits per row ([k] / [Q, k]), left out of the
+    mean and sd the tail thresholds derive from.  Returns (sum, sumsq,
+    slnl, T1, c0, c1, T0) as scalars or [Q] arrays."""
+    sf = np.asarray(scores_flat, np.float64)[..., valid_mask]
+    l = np.asarray(lnl_flat, np.float64)[valid_mask]
+    msum, msumsq = sf.sum(-1), (sf * sf).sum(-1)
+    mslnl = (sf * l).sum(-1)
+    tops = np.asarray(top_scores, np.float64)
+    tv = tops >= 0
+    n_ex = np.maximum(valid_mask.sum() - tv.sum(-1), 1)
+    tf = np.where(tv, tops, 0.0)
+    mean = (msum - tf.sum(-1)) / n_ex
+    var = np.maximum((msumsq - (tf * tf).sum(-1)) / n_ex - mean * mean,
+                     0.0)
+    sd = np.sqrt(var)
+    t0 = np.ceil(mean + TAIL_SDS0 * sd)
+    t1 = np.ceil(mean + TAIL_SDS * sd)
+    up = (lambda t: t[..., None]) if sf.ndim > 1 else (lambda t: t)
+    c0 = (sf >= up(t0)).sum(-1).astype(np.float64)
+    c1 = (sf >= up(t1)).sum(-1).astype(np.float64)
+    return msum, msumsq, mslnl, t1, c0, c1, t0
+
+
 def check_query(query, config: SearchConfig) -> np.ndarray:
     """The query as int32 codes at its true length; an empty query is one
     DUMMY row (it scores 0 everywhere).  Rejects codes outside 0..23 (an
@@ -338,7 +392,11 @@ def plan_segments(idxs, seg_map, used_blocks, u_rows, queries):
 class SearchEngine:
     """Searches one packed database with a fixed matrix and gap setting on
     one device.  device=None means CUDA and raises when there is none; CPU
-    runs pass device="cpu" and score with the plain PyTorch version."""
+    runs pass device="cpu" and score with the plain PyTorch version.
+    `mode` is the resolved profile_mode: "precompute" or "stream" (the
+    database resident on the device: `state`, `valid`, `lnl`, `scratch`) or
+    "host_stream" (those four are None; `_hs_slices`, `ids_flat` and
+    `lnl_flat` describe the same slots from the host)."""
 
     def __init__(self, db: PackedDB, config: SearchConfig = None,
                  device=None):
@@ -356,25 +414,200 @@ class SearchEngine:
         self.config = config or SearchConfig()
         self.submat = get_submat(self.config.matrix)
         self.metrics = Metrics()
+        cuda = self.device.type == "cuda"
+        self.mode = self.config.profile_mode
+        if self.mode == "auto":
+            hbm = self.config.hbm_budget_bytes
+            if hbm is None:
+                hbm = device_hbm_bytes(self.device)
+            plan = plan_profile_mode(
+                db, hbm, max_query_len=self.config.max_query_len,
+                config=self.config)
+            self.mode = plan.mode
+            # stderr: --json runs keep stdout machine-readable
+            print(f"oswald-tpu-torch engine: {plan.describe()}",
+                  file=sys.stderr)
         t_setup = time.perf_counter()
-        self.state = to_device(db, self.device)
-        self.ids_flat = self.state.ids_flat
-        self.valid = self.state.valid
-        self.lnl = self.state.lnl
         self.submat_dev = torch.as_tensor(self.submat, dtype=torch.int32,
                                           device=self.device)
-        # kernel scratch (H and F rows between query strips), allocated
-        # once; its size does not depend on the query
-        self.scratch = torch.empty(
-            (2,) + tuple(self.state.residues.shape), dtype=torch.int32,
-            device=self.device) if self.device.type == "cuda" else None
+        self.state = self.valid = self.lnl = self.scratch = None
+        self._hs_slices = []
+        if self.mode == "host_stream":
+            self._init_host_stream()
+        else:
+            self.state = to_device(db, self.device)
+            self.ids_flat = self.state.ids_flat
+            self.valid = self.state.valid
+            self.lnl = self.state.lnl
+            # kernel scratch (H and F rows between query strips), allocated
+            # once; its size does not depend on the query
+            if cuda:
+                self.scratch = torch.empty(
+                    (2,) + tuple(self.state.residues.shape),
+                    dtype=torch.int32, device=self.device)
+        self.n_slots = int(self.ids_flat.shape[0])
         self._lnl_by_id, self._lnl_mom, self._len_hist = db_len_stats(db)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.metrics.add("engine_setup", time.perf_counter() - t_setup)
 
+    def _init_host_stream(self):
+        """The host_stream state: the slices (io.device_db.to_host_stream),
+        the per-slot vectors on the host and, on a card, what one sweep
+        reuses: two pinned staging buffers and two device buffers of the
+        largest slice's size, one kernel scratch of 8 times that, and a side
+        stream for the copies.  At most two slices and one scratch are ever
+        on the device."""
+        hs = to_host_stream(self.db, self.device,
+                            self.config.host_stream_slice_mb)
+        self._hs_slices = hs.slices
+        self.ids_flat = hs.ids_flat
+        self.lnl_flat = hs.lnl_flat
+        self._hs_valid = hs.ids_flat >= 0
+        self._hs_out = None          # int32[rows, n_slots], grown on demand
+        if self.device.type != "cuda":
+            return
+        n = hs.max_cols * 8 * 128
+        self._hs_pinned = [torch.empty(n, dtype=torch.int8, pin_memory=True)
+                           for _ in range(2)]
+        self._hs_dev = [torch.empty(n, dtype=torch.int8, device=self.device)
+                        for _ in range(2)]
+        self._hs_scratch = torch.empty(2 * n, dtype=torch.int32,
+                                       device=self.device)
+        self._hs_copy_stream = torch.cuda.Stream(self.device)
+
+    def _hs_rows(self, rows: int) -> torch.Tensor:
+        """int32[rows, n_slots] on the host (pinned on a card) that the
+        sweep drains its scores into; reused by the next sweep."""
+        if self._hs_out is None or self._hs_out.shape[0] < rows:
+            self._hs_out = torch.empty(
+                (rows, self.n_slots), dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
+        return self._hs_out[:rows]
+
+    def _host_stream_scores_multi(self, launches):
+        """One sweep of the database for every launch of a call: each
+        slice is transferred once and scored by every launch, one kernel
+        launch per slice (the slice's group table covers its spans of
+        several bins), and its scores drain to the host.  launches:
+        [(rows int32[m], segs int32[S, 2] or None)]: with segs one
+        sw_groups_packed launch per slice, without one sw_groups launch.
+        Returns one int32[S, n_slots] numpy array per launch (S = 1 without
+        segs); they are views of a buffer the next sweep overwrites.
+
+        On a card the copies run on a side stream and the kernels on the
+        current one: slice i + 1 is staged (pinned buffer filled by the
+        host, copy queued) before slice i's kernels are queued, so a
+        slice's copy runs under the kernels of the slice before it.  Events
+        order the reuse: the host refills a pinned buffer only after the
+        copy out of it has finished, the copy into a device buffer waits
+        for the kernels that read it two slices ago, and the kernels wait
+        for their slice's copy.  host_stream_overlap=False is the serial
+        schedule: copy, wait, score, wait, slice by slice, same results."""
+        cfg, dev = self.config, self.device
+        n_rows = [1 if segs is None else len(segs) for _, segs in launches]
+        ops = [(torch.from_numpy(np.ascontiguousarray(q, np.int32)).to(dev),
+                None if segs is None else
+                torch.from_numpy(np.ascontiguousarray(segs, np.int32))
+                .to(dev)) for q, segs in launches]
+        out = self._hs_rows(sum(n_rows))
+
+        def score(sl, residues, scratch):
+            row = 0
+            for (q, segs), n in zip(ops, n_rows):
+                if segs is None:
+                    got = sw_groups(residues, sl.groups, q, self.submat_dev,
+                                    cfg.open_gap, cfg.extend_gap, scratch)
+                else:
+                    got = sw_groups_packed(
+                        residues, sl.groups, q, segs, self.submat_dev,
+                        cfg.open_gap, cfg.extend_gap, scratch)
+                got = got.reshape(n, -1)
+                for i in range(n):
+                    out[row + i, sl.slot0:sl.slot0 + sl.n_slots].copy_(
+                        got[i], non_blocking=True)
+                row += n
+
+        if dev.type == "cuda":
+            self._hs_sweep_cuda(score)
+        else:
+            for sl in self._hs_slices:
+                buf = np.empty(sl.n_bytes, np.int8)
+                fill_slice(self.db, sl, buf)
+                score(sl, torch.from_numpy(buf).reshape(sl.n_cols, 8, 128),
+                      None)
+        host, res, row = out.numpy(), [], 0
+        for n in n_rows:
+            res.append(host[row:row + n])
+            row += n
+        return res
+
+    def _hs_sweep_cuda(self, score):
+        """Stream every slice through the card and call score(slice,
+        residues, scratch) on each (see _host_stream_scores_multi)."""
+        dev, slices = self.device, self._hs_slices
+        overlap = self.config.host_stream_overlap
+        cur = torch.cuda.current_stream(dev)
+        copies = self._hs_copy_stream if overlap else cur
+        copied, scored = [None, None], [None, None]
+
+        def stage(i):
+            b, n = (i % 2 if overlap else 0), slices[i].n_bytes
+            if copied[b] is not None:
+                copied[b].synchronize()      # the pinned buffer is free
+            fill_slice(self.db, slices[i], self._hs_pinned[b].numpy()[:n])
+            if overlap and scored[b] is not None:
+                copies.wait_event(scored[b])  # the device buffer is free
+            with torch.cuda.stream(copies):
+                self._hs_dev[b][:n].copy_(self._hs_pinned[b][:n],
+                                          non_blocking=True)
+                copied[b] = torch.cuda.Event()
+                copied[b].record(copies)
+
+        def run(i):
+            b, sl = (i % 2 if overlap else 0), slices[i]
+            cur.wait_event(copied[b])
+            score(sl, self._hs_dev[b][:sl.n_bytes].view(sl.n_cols, 8, 128),
+                  self._hs_scratch[:2 * sl.n_bytes].view(2, sl.n_cols, 8,
+                                                         128))
+            scored[b] = torch.cuda.Event()
+            scored[b].record(cur)
+
+        if overlap:
+            for i in range(len(slices)):
+                if i == 0:
+                    stage(0)
+                if i + 1 < len(slices):
+                    stage(i + 1)
+                run(i)
+        else:
+            for i in range(len(slices)):
+                stage(i)
+                cur.synchronize()
+                run(i)
+                cur.synchronize()
+        cur.synchronize()                    # the scores are on the host
+
+    def _host_stream_scores(self, query) -> np.ndarray:
+        """int32[n_slots] scores of one checked query under host_stream."""
+        return self._host_stream_scores_multi([(query, None)])[0][0]
+
+    def _host_reduce(self, scores, k):
+        """(top scores [Q, k], top slots [Q, k], moments of [Q]) of
+        host-side scores int32[Q, n_slots]."""
+        top_scores = np.empty((len(scores), k), np.int32)
+        top_slots = np.empty((len(scores), k), np.int64)
+        for row in range(len(scores)):
+            top_scores[row], top_slots[row] = _host_topk(
+                scores[row], self.ids_flat, k)
+        return top_scores, top_slots, _host_moments(
+            scores, self._hs_valid, self.lnl_flat, top_scores)
+
     def score_all(self, query) -> torch.Tensor:
         """int32 scores for every slot, in slot order, on the device."""
+        if self.mode == "host_stream":
+            return torch.from_numpy(self._host_stream_scores(
+                check_query(query, self.config)).copy()).to(self.device)
         q = torch.from_numpy(check_query(query, self.config)).to(self.device)
         return sw_groups(self.state.residues, self.state.groups, q,
                          self.submat_dev, self.config.open_gap,
@@ -385,8 +618,15 @@ class SearchEngine:
         a pending tuple for _finish."""
         t0 = time.perf_counter()
         k = min(self.config.top, self.db.n_seqs)
+        if self.mode == "host_stream":
+            # the sweep has its own pipeline and ends synchronised
+            scores = self._host_stream_scores(
+                check_query(query, self.config))
+            top_scores, top_slots, mom = self._host_reduce(scores[None], k)
+            done = top_scores[0], top_slots[0], tuple(m[0] for m in mom)
+            return query, query_title, t0, None, done
         packed = _topk(self.score_all(query), self.valid, self.lnl, k)
-        return query, query_title, t0, packed
+        return query, query_title, t0, packed, None
 
     def _result(self, query, query_title, top_scores, top_slots, mom):
         """Hits with statistics from one query's unpacked readback."""
@@ -409,10 +649,12 @@ class SearchEngine:
         """Build a _dispatch's result from its packed array: `host` when a
         window's readback already holds it, else this query's own blocking
         readback."""
-        query, query_title, t0, packed = pend
-        if host is None:
-            host = packed.cpu().numpy()          # the one readback
-        res = self._result(query, query_title, *_unpack_topk(host))
+        query, query_title, t0, packed, done = pend
+        if done is None:
+            if host is None:
+                host = packed.cpu().numpy()      # the one readback
+            done = _unpack_topk(host)
+        res = self._result(query, query_title, *done)
         res.elapsed = time.perf_counter() - t0
         self.metrics.add("search", res.elapsed)
         return res
@@ -432,7 +674,9 @@ class SearchEngine:
         for lo in range(0, len(queries), W):
             grp = [self._dispatch(q, t)
                    for q, t in zip(queries[lo:lo + W], titles[lo:lo + W])]
-            stacked = torch.stack([p[3] for p in grp])
+            # host_stream queries are finished already: nothing to stack
+            stacked = torch.stack([p[3] for p in grp]) \
+                if self.mode != "host_stream" else None
             if prev is not None:
                 results.extend(self._finish_group(*prev))
             prev = (grp, stacked)
@@ -443,6 +687,8 @@ class SearchEngine:
     def _finish_group(self, grp, stacked):
         """Finish one readback window: one blocking transfer of the stack,
         then each query's result from its own rows."""
+        if stacked is None:
+            return [self._finish(p) for p in grp]
         big = stacked.cpu().numpy()              # the one window readback
         return [self._finish(p, big[i]) for i, p in enumerate(grp)]
 
@@ -469,11 +715,29 @@ class SearchEngine:
         results = [None] * len(queries)
         k = min(self.config.top, self.db.n_seqs)
         st, cfg = self.state, self.config
+        bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows,
+                                     queries)
+
+        def emit(idxs, top_scores, top_slots, mom):
+            for row, i in enumerate(idxs):
+                results[i] = self._result(
+                    queries[i], titles[i], top_scores[row], top_slots[row],
+                    tuple(m[row] for m in mom))
+
+        if self.mode == "host_stream":
+            # one sweep scores every launch of the plan on each slice
+            launches = [(q_packed, plan_segments(idxs, seg_map, used,
+                                                 cfg.u_rows, queries))
+                        for idxs, q_packed, seg_map, used in bins] + \
+                       [(check_query(queries[i], cfg), None) for i in rest]
+            groups = [idxs for idxs, *_ in bins] + [[i] for i in rest]
+            for idxs, scores in zip(
+                    groups, self._host_stream_scores_multi(launches)):
+                emit(idxs, *self._host_reduce(scores, k))
+            bins, rest = [], []
         # two phases: every launch of the batch is queued before the first
         # readback blocks
         pending = []                     # (query indices, packed [Q, 2, .])
-        bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows,
-                                     queries)
         for idxs, q_packed, seg_map, used in bins:
             segs = plan_segments(idxs, seg_map, used, cfg.u_rows, queries)
             scores = sw_groups_packed(
@@ -488,13 +752,8 @@ class SearchEngine:
             # on the stream, then one top-k and one readback for all
             scores = torch.stack([self.score_all(queries[i]) for i in rest])
             pending.append((rest, _topk(scores, self.valid, self.lnl, k)))
-
         for idxs, packed in pending:
-            top_scores, top_slots, mom = _unpack_topk(packed.cpu().numpy())
-            for row, i in enumerate(idxs):
-                results[i] = self._result(
-                    queries[i], titles[i], top_scores[row], top_slots[row],
-                    tuple(m[row] for m in mom))
+            emit(idxs, *_unpack_topk(packed.cpu().numpy()))
         elapsed = time.perf_counter() - t0
         self.metrics.add("search_batch", elapsed)
         # every result carries the batch's wall time and batch_n: queries

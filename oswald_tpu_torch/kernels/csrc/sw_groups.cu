@@ -34,10 +34,11 @@
 // strip one global-load round trip (residue, H and F) with scratch traffic
 // of 16 / U bytes per cell.  U = 16 ran 5.2x faster than U = 8 over a
 // SwissProt-sized database, with identical scores (NVIDIA H100 80GB HBM3,
-// 700 W; PERF.md).  Left for later work: the DPX intrinsics
-// (__viaddmax_s32, __vimax3_s32) written out, prefetching the next column,
-// and launching the longest groups first so the last wave does not wait on
-// them.
+// 700 W; PERF.md).  The DPX intrinsics (__viaddmax_s32, __vimax3_s32)
+// written out and prefetching the next column are measured by the lab
+// variants `dpx` and `pre` of sw_groups_lab.cu, with the column's loads in
+// place and a column ahead (PERF.md has their times).  Left for later work:
+// launching the longest groups first so the last wave does not wait on them.
 
 #include "sw_cell.cuh"
 

@@ -187,11 +187,10 @@ def sw_lanes_ref(cols, query, submat, open_gap: int, extend_gap: int):
     return best
 
 
-def sw_groups_ref(residues, groups, query, submat, open_gap: int,
-                  extend_gap: int, scratch=None):
-    """Plain PyTorch version of `sw_groups`; `scratch` is ignored.  Groups
-    of equal L run as one batch of lanes."""
-    _check(residues, groups, query, submat, scratch)
+def score_groups_by_length(residues, groups, score_cols):
+    """int32[G, 8, 128] scores of every group of the table, from
+    `score_cols(cols)`, which maps int8[L, lanes] subject columns to
+    int32[lanes] scores.  Groups of equal L run as one batch of lanes."""
     dev = residues.device
     n = groups.shape[0]
     out = torch.zeros((n,) + GROUP_SHAPE, dtype=torch.int32, device=dev)
@@ -211,9 +210,17 @@ def sw_groups_ref(residues, groups, query, submat, open_gap: int,
         cols = c0[:, None] + torch.arange(L, device=dev)        # [n, L]
         sub = residues[cols].reshape(len(items), L, lanes)
         sub = sub.permute(1, 0, 2).reshape(L, len(items) * lanes)
-        best = sw_lanes_ref(sub, query, submat, open_gap, extend_gap)
-        out[idx] = best.reshape((len(items),) + GROUP_SHAPE)
+        out[idx] = score_cols(sub).reshape((len(items),) + GROUP_SHAPE)
     return out
+
+
+def sw_groups_ref(residues, groups, query, submat, open_gap: int,
+                  extend_gap: int, scratch=None):
+    """Plain PyTorch version of `sw_groups`; `scratch` is ignored."""
+    _check(residues, groups, query, submat, scratch)
+    return score_groups_by_length(
+        residues, groups,
+        lambda cols: sw_lanes_ref(cols, query, submat, open_gap, extend_gap))
 
 
 def sw_groups_packed_ref(residues, groups, q_packed, segs, submat,

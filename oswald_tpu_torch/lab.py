@@ -1,17 +1,27 @@
-"""Kernel timings over a whole database on one CUDA card:
+"""Kernel timings over a whole database on one CUDA card, the counterpart of
+scripts/kernel_lab.py:
 
-    python -m oswald_tpu_torch.lab [--seqs N] [--sass DIR]
+    python -m oswald_tpu_torch.lab [--variants base,fscan,ks,...] [--check]
+                                   [--m M] [--seqs N] [--sass DIR]
 
-Builds the SwissProt-shaped synthetic database of chip_smoke.py (seed 0),
-moves it to the card, and times `sw_groups` and `sw_groups_packed` over
-every group of it with CUDA events (one warm-up, mean of 3), for one query
-of 512 residues and for packed layouts of the same and of twice the rows.
-Every packed result is held to `sw_groups` on the same rows (exact).  Each
-line carries the card's name and power limit.  With --sass, the kernels'
-SASS (cuobjdump) is written to DIR, one file per kernel.
+Builds the SwissProt-shaped synthetic database of chip_smoke.py (seed 0) and
+moves it to the card.  With --check every chosen variant of `sw_groups_lab`
+is held to `sw_groups` over the whole database (exact int32 scores) at query
+lengths 512 and 65, under the engine's gaps and under 11/1, and the exit
+code is non-zero on a difference.  Otherwise it times `sw_groups` and
+`sw_groups_packed` over every group with CUDA events (one warm-up, mean of
+3), for one query of 512 residues and for packed layouts of the same and of
+twice the rows, every packed result held to `sw_groups` on the same rows
+(exact), and then every chosen lab variant at query length --m: one line
+each with milliseconds, Gcells/s, registers and spills, first with each
+column's loads where they are used, then with them one column ahead.  Each line carries
+the card's name and power limit.  With --sass, the kernels' SASS (cuobjdump)
+is written to DIR, one file per library, and the instruction count of each
+lab variant is printed.
 """
 
 import argparse
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -45,11 +55,107 @@ def timed(fn, reps=3):
     return out, start.elapsed_time(end) / reps
 
 
+def card_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _lab_launch(engine, query, variant, gaps=None, load_ahead=False):
+    from oswald_tpu_torch.kernels.sw_lab import sw_groups_lab
+    st, cfg = engine.state, engine.config
+    og, eg = gaps or (cfg.open_gap, cfg.extend_gap)
+    return sw_groups_lab(st.residues, st.groups, query, engine.submat_dev,
+                         og, eg, variant, engine.scratch, load_ahead)
+
+
+def run_variants(engine, variants, m, card="", say=print, load_ahead=False):
+    """Time every lab variant over the engine's whole database for one
+    query of m residues (seeded by m), with each column's loads where they
+    are used or, with load_ahead, one column ahead.  Prints one line per
+    variant and returns {variant: milliseconds}.  The engine must be
+    resident on a CUDA card."""
+    from oswald_tpu_torch.io.synth import realistic_residues
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.kernels.sw_lab import AHEAD, ptxas_report
+    q = torch.from_numpy(realistic_residues(
+        np.random.default_rng(m), m).astype(np.int32)).to(engine.device)
+    cells = engine.state.residues.shape[0] * 1024 * m
+    build.load("sw_groups_lab")
+    regs = ptxas_report(build.build_logs.get("sw_groups_lab"))
+    out = {}
+    tag = AHEAD if load_ahead else ""
+    for v in variants:
+        _, ms = timed(lambda: _lab_launch(engine, q, v,
+                                          load_ahead=load_ahead))
+        out[v] = ms
+        say(f"sw_groups_lab {v}{tag}, m={m}: {ms:.2f} ms, "
+            f"{cells / ms / 1e6:.1f} Gcells/s, "
+            f"{regs.get(v + tag, 'registers not reported: built before')} "
+            f"[{card}]")
+    return out
+
+
+def check_variants(engine, variants, say=print):
+    """Every variant, with its loads in place and ahead, against sw_groups
+    over the whole database, exact, at query lengths 512 and 65 under the
+    engine's gaps and under 11/1.  Returns the number of cases that
+    differ."""
+    from oswald_tpu_torch.io.synth import realistic_residues
+    from oswald_tpu_torch.kernels.sw_lanes import sw_groups
+    st, cfg = engine.state, engine.config
+    bad = 0
+    for gaps in ((cfg.open_gap, cfg.extend_gap), (11, 1)):
+        for m in (512, 65):
+            q = torch.from_numpy(realistic_residues(
+                np.random.default_rng(m), m).astype(np.int32)).to(
+                    engine.device)
+            want = sw_groups(st.residues, st.groups, q, engine.submat_dev,
+                             *gaps, engine.scratch)
+            for v in variants:
+                diffs = [int((_lab_launch(engine, q, v, gaps, ahead) - want)
+                             .abs().max()) for ahead in (False, True)]
+                bad += sum(d != 0 for d in diffs)
+                say(f"check {v}, m={m}, gaps {gaps[0]}/{gaps[1]}: " +
+                    ("equal to sw_groups, loads in place and ahead"
+                     if not any(diffs) else
+                     f"DIFFERS by {diffs[0]} (in place), {diffs[1]} (ahead)"))
+    return bad
+
+
+def _sass_counts(sass):
+    """{kernel label: instruction lines} of the lab library's SASS."""
+    from oswald_tpu_torch.kernels.sw_lab import kernel_label
+    out, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = kernel_label(line)
+            if current is not None:
+                out[current] = 0
+        elif current is not None and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            out[current] += 1
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m oswald_tpu_torch.lab")
     ap.add_argument("--seqs", type=int, default=570_000)
     ap.add_argument("--sass", metavar="DIR", default=None)
+    ap.add_argument("--variants", default=None,
+                    help="comma list of lab variants (default: all)")
+    ap.add_argument("--check", action="store_true",
+                    help="hold every variant to sw_groups and exit")
+    ap.add_argument("--m", type=int, default=ROWS,
+                    help="query length of the variant timings")
     args = ap.parse_args(argv)
+    from oswald_tpu_torch.kernels.sw_lab import VARIANTS
+    variants = args.variants.split(",") if args.variants else list(VARIANTS)
+    unknown = [v for v in variants if v not in VARIANTS]
+    if unknown:
+        ap.error(f"unknown variants {unknown}; choose from "
+                 f"{', '.join(VARIANTS)}")
     if not torch.cuda.is_available():
         print("lab: CUDA is not available", file=sys.stderr)
         return 1
@@ -60,10 +166,7 @@ def main(argv=None):
     from oswald_tpu_torch.kernels import build
     from oswald_tpu_torch.kernels.sw_lanes import sw_groups, sw_groups_packed
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     build.build_all()
     rng = np.random.default_rng(0)
     q = realistic_residues(rng, 2 * ROWS).astype(np.int32)
@@ -73,6 +176,8 @@ def main(argv=None):
     st, cfg = engine.state, engine.config
     qp = torch.from_numpy(q).cuda()
     cells = st.residues.shape[0] * 1024
+    if args.check:
+        return 1 if check_variants(engine, variants) else 0
 
     def single(r0, n):
         return sw_groups(st.residues, st.groups, qp[r0:r0 + n].contiguous(),
@@ -97,6 +202,8 @@ def main(argv=None):
                 raise AssertionError(f"{label}: segment {s} differs from "
                                      f"sw_groups")
         report(f"sw_groups_packed {label}", sum(n for _, n in segs), ms)
+    run_variants(engine, variants, args.m, card)
+    run_variants(engine, variants, args.m, card, load_ahead=True)
     if args.sass:
         out = Path(args.sass)
         out.mkdir(parents=True, exist_ok=True)
@@ -107,6 +214,9 @@ def main(argv=None):
             (out / f"{name}.sass").write_text(sass)
             print(f"{name}: {len(sass.splitlines())} lines of SASS in "
                   f"{out / (name + '.sass')}")
+            if name == "sw_groups_lab":
+                print("instruction lines per variant: "
+                      f"{_sass_counts(sass)}")
     return 0
 
 

@@ -105,7 +105,6 @@ def test_search_text_report(fasta_db, capsys):
     (["--trace", "tr"], "--trace"),
     (["--distributed"], "--distributed"),
     (["--devices", "2"], "--devices > 1"),
-    (["--profile-mode", "host_stream"], "--profile-mode host_stream"),
 ])
 def test_unported_flags_exit_2(fasta_db, capsys, flags, name):
     assert main(["search", "-q", str(fasta_db / "q.fasta"),
@@ -205,3 +204,66 @@ def test_help_describes_batching(capsys):
     assert "--no-batch" in out and "--stream-window" in out
     assert "the port always does" not in out
     assert "instead of packing them into batched launches" in out
+
+
+@pytest.mark.parametrize("flags,mode", [
+    (["--profile-mode", "host_stream"], None),
+    (["--profile-mode", "stream"], None),
+    (["--profile-mode", "precompute"], None),
+    (["--hbm-budget-mb", "1"], "host_stream"),
+    (["--hbm-budget-mb", "100000"], "precompute"),
+    ([], "precompute"),
+])
+def test_profile_modes_report_the_same_hits(fasta_db, capsys, flags, mode):
+    """Every profile mode prints the default mode's hits; `auto` (the
+    default) announces its plan on stderr and leaves the JSON on stdout
+    clean, and --hbm-budget-mb moves that plan.  An explicit mode asks no
+    planner."""
+    args = ["search", "-q", str(fasta_db / "q.fasta"),
+            "-d", str(fasta_db / "db"), "-r", "6", "--json", "--device",
+            "cpu"]
+    assert main(args + ["--profile-mode", "precompute"]) == 0
+    want, _ = _json_lines(capsys.readouterr().out)
+    assert main(args + flags) == 0
+    cap = capsys.readouterr()
+    got, summary = _json_lines(cap.out)
+    assert _hits(got) == _hits(want)
+    assert summary["n_queries"] == 2
+    for g, w in zip(got, want):
+        # host moments in float64 against float32 ones
+        np.testing.assert_allclose(
+            np.log([h["evalue"] for h in g["hits"]]),
+            np.log([h["evalue"] for h in w["hits"]]), rtol=1e-5, atol=1e-4)
+    if mode is None:
+        assert cap.err == ""
+    else:
+        assert cap.err.startswith(
+            f"oswald-tpu-torch engine: profile_mode={mode} (planner:")
+
+
+def test_host_stream_text_report_and_no_batch(fasta_db, capsys):
+    """The text report under host_stream equals the default mode's, hit
+    table for hit table, batched and one by one."""
+    args = ["search", "-q", str(fasta_db / "q.fasta"),
+            "-d", str(fasta_db / "db"), "-r", "4", "--device", "cpu"]
+
+    def tables(extra):
+        assert main(args + extra) == 0
+        out = capsys.readouterr().out
+        return [line for line in out.splitlines()
+                if line[:1].isdigit() and "\t" in line]
+
+    want = tables(["--profile-mode", "precompute"])
+    assert len(want) == 8
+    assert tables(["--profile-mode", "host_stream"]) == want
+    assert tables(["--profile-mode", "host_stream", "--no-batch"]) == want
+
+
+def test_help_describes_memory_modes(capsys):
+    with pytest.raises(SystemExit):
+        main(["search", "--help"])
+    out = " ".join(capsys.readouterr().out.split())
+    assert "host_stream keeps it on the host" in out
+    assert "that --profile-mode auto plans for" in out
+    assert "host_stream is not yet ported" not in out
+    assert "no memory planner" not in out

@@ -1,6 +1,6 @@
-"""oswald_tpu_torch on a CUDA card: the sw_groups and sw_groups_packed
-kernels against their plain versions, and the CUDA engine against the CPU
-engine (tolerance: exact).
+"""oswald_tpu_torch on a CUDA card: the sw_groups, sw_groups_packed and
+sw_groups_lab kernels against their plain versions, and the CUDA engine,
+resident and host_stream, against the CPU engine (tolerance: exact).
 
 Every test is marked `gpu` and skips without a card.  The file imports
 neither jax, nor oswald_tpu, nor the test conftest (which imports jax), so
@@ -18,7 +18,9 @@ from oswald_tpu_torch.alphabet import DUMMY
 from oswald_tpu_torch.engine import SearchConfig, SearchEngine
 from oswald_tpu_torch.engine.search import mixed_pack_plan, plan_segments
 from oswald_tpu_torch.io import pack_sequences
-from oswald_tpu_torch.kernels import sw_lanes
+from oswald_tpu_torch.kernels import sw_lab, sw_lanes
+from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, sw_groups_lab,
+                                             sw_groups_lab_ref)
 from oswald_tpu_torch.kernels.sw_lanes import (sw_groups, sw_groups_packed,
                                                sw_groups_packed_ref,
                                                sw_groups_ref)
@@ -258,3 +260,125 @@ def test_cuda_search_many_matches_cpu(cuda):
                                            np.log(a.evalues), rtol=1e-5,
                                            atol=1e-4)
     assert all(r.batch_n == len(queries) for r in got)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_lab_kernel_matches_plain_versions(cuda, variant):
+    """Every lab variant: the kernel equals its own plain version, the
+    shipping plain version and sw_groups, over bins with tails and query
+    lengths of one row, a partial strip and several strips."""
+    for m, matrix, og, eg in ((1, "blosum62", 10, 2), (9, "blosum62", 11, 1),
+                              (33, "pam30", 7, 1), (100, "blosum62", 0, 0)):
+        rng = np.random.default_rng(m)
+        args = _inputs(rng, [(2, 32), (1, 224), (1, 96)], m, matrix, cuda)
+        before = sw_lab.launches_lab
+        got = sw_groups_lab(*args, og, eg, variant)
+        torch.cuda.synchronize()
+        assert sw_lab.launches_lab == before + 1
+        ahead = sw_groups_lab(*args, og, eg, variant, load_ahead=True)
+        assert sw_lab.launches_lab == before + 2
+        for want in (sw_groups_lab_ref(*args, og, eg, variant), ahead,
+                     sw_groups_ref(*args, og, eg), sw_groups(*args, og, eg)):
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+def test_lab_kernel_long_query_and_scratch(cuda):
+    """A query beyond 48 KB of shared memory, with a caller's scratch."""
+    rng = np.random.default_rng(21)
+    res, table, q, sm = _inputs(rng, [(1, 64), (1, 160)], 13000, "pam30",
+                                cuda)
+    scratch = torch.empty((2,) + tuple(res.shape), dtype=torch.int32,
+                          device=cuda)
+    want = sw_groups(res, table, q, sm, 7, 1, scratch)
+    for variant in VARIANTS:
+        for ahead in (False, True):
+            got = sw_groups_lab(res, table, q, sm, 7, 1, variant, scratch,
+                                ahead)
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+def test_lab_unknown_variant_and_refused_launch_raise(cuda):
+    rng = np.random.default_rng(22)
+    args = _inputs(rng, [(1, 32)], 5, "blosum62", cuda)
+    before = sw_lab.launches_lab
+    with pytest.raises(ValueError, match="unknown variant"):
+        sw_groups_lab(*args, 10, 2, "fast")
+    args = _inputs(rng, [(1, 32)], 60000, "blosum62", cuda)
+    with pytest.raises(RuntimeError,
+                       match="sw_groups_lab kernel launch failed"):
+        sw_groups_lab(*args, 10, 2, "ks")
+    assert sw_lab.launches_lab == before
+
+
+def _same_evalues(a, b):
+    """float64 moments on the host against float32 ones on the card."""
+    assert (a.evalues is None) == (b.evalues is None)
+    if a.evalues is not None:
+        np.testing.assert_allclose(b.evalues, a.evalues, rtol=1e-4)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_cuda_host_stream_matches_resident(cuda, overlap):
+    """host_stream on the card: several slices, a multi-span slice, one
+    launch per slice and launch of the call; the full score surface, single
+    searches, a batch with a leftover and a stream equal the resident
+    engine's, several times in a row (buffers are reused)."""
+    rng = np.random.default_rng(23)
+    lengths = rng.integers(1, 300, size=19000)
+    seqs = [_protein(rng, int(n)) for n in lengths]
+    db = pack_sequences(np.concatenate(seqs), lengths,
+                        [f"s{i}" for i in range(len(seqs))])
+    cfg = dict(top=9, batch_query_pack_rows=256)
+    res = SearchEngine(db, SearchConfig(**cfg))
+    hs = SearchEngine(db, SearchConfig(profile_mode="host_stream",
+                                       host_stream_slice_mb=1,
+                                       host_stream_overlap=overlap, **cfg))
+    assert hs.mode == "host_stream" and hs.state is None
+    n = len(hs._hs_slices)
+    assert n > 2 and any(len(s.spans) > 1 for s in hs._hs_slices)
+    np.testing.assert_array_equal(hs.ids_flat, res.ids_flat)
+    queries = [_protein(rng, k) for k in (30, 100, 0, 300, 64, 12, 200)]
+    for q in queries[:4] * 2:
+        want = res.score_all(q)
+        sw_lanes.launches = 0
+        np.testing.assert_array_equal(hs.score_all(q).cpu().numpy(),
+                                      want.cpu().numpy())
+        assert sw_lanes.launches == n
+        a, b = res.search(q), hs.search(q)
+        np.testing.assert_array_equal(a.scores, b.scores)
+        np.testing.assert_array_equal(a.seq_ids, b.seq_ids)
+        assert a.titles == b.titles
+        _same_evalues(a, b)
+    bins, rest = mixed_pack_plan(256, 8, queries)
+    assert bins and rest
+    want = res.search_many(queries)
+    sw_lanes.launches = sw_lanes.launches_packed = 0
+    got = hs.search_many(queries)
+    assert (sw_lanes.launches_packed, sw_lanes.launches) == \
+        (n * len(bins), n * len(rest))
+    for run in (got, hs.search_many(queries), hs.search_stream(queries)):
+        for a, b in zip(want, run):
+            np.testing.assert_array_equal(a.scores, b.scores)
+            np.testing.assert_array_equal(a.seq_ids, b.seq_ids)
+            _same_evalues(a, b)
+    assert all(r.batch_n == len(queries) for r in got)
+
+
+def test_cuda_auto_mode_plans_from_the_card(cuda, capsys):
+    rng = np.random.default_rng(24)
+    lengths = rng.integers(1, 200, size=3000)
+    db = pack_sequences(_protein(rng, int(lengths.sum())), lengths,
+                        [f"s{i}" for i in range(len(lengths))])
+    assert SearchEngine(db, SearchConfig()).mode == "precompute"
+    assert "profile_mode=precompute" in capsys.readouterr().err
+    eng = SearchEngine(db, SearchConfig(hbm_budget_bytes=1 << 20,
+                                        host_stream_slice_mb=1))
+    assert eng.mode == "host_stream"
+    assert "profile_mode=host_stream" in capsys.readouterr().err
+    q = _protein(rng, 40)
+    want = SearchEngine(db, SearchConfig(profile_mode="stream")).search(q)
+    got = eng.search(q)
+    np.testing.assert_array_equal(want.scores, got.scores)
+    np.testing.assert_array_equal(want.seq_ids, got.seq_ids)

@@ -14,11 +14,14 @@ REPO = Path(__file__).resolve().parents[1]
 _SCRIPT = """
 import sys
 import numpy as np
+import torch
 import oswald_tpu_torch
-from oswald_tpu_torch.engine import SearchEngine, SearchConfig
+from oswald_tpu_torch.engine import SearchEngine, SearchConfig, planner
 from oswald_tpu_torch.io import to_device, pack_sequences, save_db, load_db
 from oswald_tpu_torch.io import synth
+from oswald_tpu_torch.io.device_db import to_host_stream
 from oswald_tpu_torch.kernels import sw_groups, sw_groups_packed, build
+from oswald_tpu_torch.kernels import sw_lab
 from oswald_tpu_torch.cli import main
 from oswald_tpu_torch import lab, stats
 from oswald_tpu_torch.utils import Metrics, gcups, hostmem
@@ -36,6 +39,22 @@ many = engine.search_many(queries)
 assert [r.batch_n for r in many] == [3, 3, 3]
 assert engine.metrics.count("search_batch") == 1
 assert len(engine.search_stream(queries)) == 3
+hs = SearchEngine(db, SearchConfig(top=3, profile_mode="host_stream",
+                                   host_stream_slice_mb=1,
+                                   batch_query_pack_rows=64), device="cpu")
+assert hs.mode == "host_stream"
+assert [list(r.scores) for r in hs.search_many(queries)] == \
+    [list(r.scores) for r in many]
+auto = SearchEngine(db, SearchConfig(top=3, hbm_budget_bytes=1 << 16),
+                    device="cpu")
+assert auto.mode == "host_stream"
+assert planner.plan_profile_mode(db).mode == "precompute"
+st = engine.state
+q3 = torch.tensor([1, 2, 3], dtype=torch.int32)
+for v in sw_lab.VARIANTS:
+    got = sw_lab.sw_groups_lab(st.residues, st.groups, q3,
+                               engine.submat_dev, 10, 2, v)
+    assert got.shape == (st.groups.shape[0], 8, 128)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "oswald_tpu" or m.startswith("oswald_tpu."))
@@ -44,7 +63,8 @@ print("loaded:", bad[:5])
 
 
 def test_port_never_imports_jax():
-    """A CPU search and a CPU batched search in a fresh interpreter load
+    """CPU searches in every mode (resident, host_stream, auto through the
+    planner), a batch, and every lab variant in a fresh interpreter load
     neither jax nor oswald_tpu."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join(

@@ -368,3 +368,23 @@ def test_hostmem_helpers():
     with hostmem.numpy_nohuge():
         big = np.ones(2 << 20, np.int8)
     assert int(big.sum()) == 2 << 20
+
+
+def test_planner_shared_parts_equal_jax(packed_pair):
+    """What the port's planner shares with the reference's: the safety
+    fraction, the longest default query, and the padded residue bytes of a
+    database.  (Its ladder and its byte counts are its own: no profile, no
+    scan state that grows with the query, no default device-memory size.)"""
+    from oswald_tpu.engine import planner as jax_planner
+    from oswald_tpu_torch.engine import planner
+    db, ref_db = packed_pair
+    assert planner.SAFETY_FRACTION == jax_planner.SAFETY_FRACTION
+    assert planner.MAX_QUERY_LEN_DEFAULT == jax_planner.MAX_QUERY_LEN_DEFAULT
+    assert planner.GROUP_LANES == jax_planner.GROUP_LANES
+    assert planner.db_padded_bytes(db) == jax_planner.db_padded_bytes(ref_db)
+    assert {f.name for f in dataclasses.fields(planner.Plan)} == \
+        {f.name for f in dataclasses.fields(jax_planner.Plan)}
+    both = jax_planner.plan_profile_mode(ref_db, hbm_bytes=1 << 40)
+    ours = planner.plan_profile_mode(db, hbm_bytes=1 << 40)
+    assert (ours.mode, ours.db_bytes, ours.budget_bytes) == \
+        (both.mode, both.db_bytes, both.budget_bytes)
