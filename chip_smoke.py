@@ -13,11 +13,17 @@ one nvcc per source, all started together), then:
    by SearchEngine(db, device="cuda");
 3. kernel against plain version: sw_groups and sw_groups_ref on one group
    of every bin, at query lengths 512 and 65; the int32 scores must be
-   equal (tolerance: exact);
+   equal (tolerance: exact).  A lone group is too small a launch to fill
+   the card, so its default work table pipelines it whatever its length;
+   the same group dealt out as rows (the role of short groups in a
+   whole-database launch) is held to the same scores;
 4. main path: SearchEngine.search for the 512-residue query and a random
    65-residue one, each one warm-up plus 3 timed runs, with the kernel's
    launch count read around them; the planted homolog must rank first with
-   E < 1e-3 and every hit's score must equal the plain version's on the CPU;
+   E < 1e-3 and every hit's score must equal the plain version's on the CPU.
+   Then sw_groups over the whole database beside its bound, over the
+   longest bin alone and over one group of it alone (the latency case), at
+   both query lengths;
 5. packed kernel against plain version: sw_groups_packed and
    sw_groups_packed_ref on one group of every bin, for the packing plan of
    20 mixed queries of 100-400 residues and for a uniform layout of 8
@@ -55,12 +61,19 @@ one nvcc per source, all started together), then:
    estimate, and where a host_stream search's time goes (kernels alone
    slice by slice, the sweep, the host's top-k and moments).
 
+One call of a kernel's wrapper is one launch, whatever roles its work table
+mixes, so the launch counts are those of the calls.  The probe prints the
+registers and spills nvcc reports for every kernel and fails if an engine
+kernel spills.
+
 Every phase raises on failure (non-zero exit, no result line).  The
 second-to-last line is a JSON object with, for each kernel, its launches on
 the main path, its error against the plain version, its time, the plain
 version's and the least time the card could take for the same work (the
-larger of the bytes moved over the memory rate and the integer operations
-over the INT32 instruction rate); the last is {"ok": true, "device": {...}}.
+larger of the bytes moved over the memory rate and the integer instructions
+the recurrence needs over the INT32 instruction rate); a kernel timed under
+that bound fails the run, since it would prove the count wrong.  The last
+line is {"ok": true, "device": {...}}.
 Times are CUDA-event times for kernels and host wall times (ended by a
 synchronising readback) for searches.
 """
@@ -91,12 +104,25 @@ SOURCES = {"sw_groups": "oswald_tpu_torch/kernels/csrc/sw_groups.cu",
 REPLACES = "oswald_tpu/kernels/sw_lanes.py:309"
 REPLACES_LAB = "scripts/kernel_lab.py:176"
 # H100 SXM data sheet: 3.35 TB/s of HBM; 67 TFLOP/s of float32 is 128 lanes
-# per SM doing one FMA (2 FLOP) per clock, and INT32 has half the lanes
+# per SM doing one FMA (2 FLOP) per clock, and INT32 has half the lanes: 64
+# lanes x 132 SMs x 1.98 GHz = 16.75e12 integer instructions a second
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2 / 2
-# integer operations of one cell of the recurrence: diag + s, max 0, max E,
-# cur' - oe, max into best, max(cur', F), E - e, max, F - e, max
-OPS_PER_CELL = 10
+INT32_INSTR_PER_S = 67e12 / 2 / 2
+# The fewest INT32 instructions of this card for one cell of the recurrence.
+# Its ten additions and maxima (diag + s, max 0, max E, cur' - oe, max into
+# best, max(cur', F), E - e, max, F - e, max) fuse on Hopper: an add with a
+# max and a floor of 0 is one instruction (VIADDMNMX with relu), an add with
+# a max another, and one three-way max (VIMNMX3) serves two cells:
+#   cur' = max(diag + s, E, 0)   1      H  = max(cur', F)           1
+#   c    = cur' - oe             1      E' = max(E - e, c)          1
+#   best = max(best, cur', cur'_next)   0.5   F' = max(F - e, c)    1
+# No rewrite known to this port does it in fewer (biasing E and F by oe
+# trades the subtraction for a second floor).  Charging all ten at one
+# lane-clock each gave a "bound" of 63.36 ms at m = 512 that both engine
+# kernels beat (39.31 and, per 998 rows, 81.44 ms against 123.51), which
+# proved that count wrong, not the kernels good.  16-bit lanes would halve
+# it again, but the function is int32 in and out.
+INSTR_PER_CELL = 5.5
 
 
 def say(msg=""):
@@ -120,10 +146,18 @@ def timed(fn, reps):
 def bound(cells, n_bytes):
     """(least milliseconds the card could take, what bounds it) for `cells`
     cell updates over inputs and outputs of `n_bytes` bytes."""
-    by_ops = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    by_ops = cells * INSTR_PER_CELL / INT32_INSTR_PER_S * 1e3
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else \
         (by_bytes, "bytes")
+
+
+def hold_to_bound(what, ms, b_ms):
+    """A time under the least the card could take disproves the bound."""
+    if ms < b_ms:
+        raise AssertionError(f"{what}: {ms:.3f} ms is under its bound of "
+                             f"{b_ms:.3f} ms: the bound counts more work "
+                             f"than the function needs")
 
 
 def probe():
@@ -161,6 +195,10 @@ def probe():
         for line in (log or "").splitlines():
             if "registers" in line or "spill" in line:
                 say("  ptxas: " + line.strip())
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill " \
+                    "loads" not in line:
+                raise AssertionError(f"{name} spills registers: "
+                                     f"{line.strip()}")
     return smi
 
 
@@ -191,6 +229,14 @@ def first_groups(engine):
                    for L in engine.db.bin_lengths]
 
 
+def sub_table(engine, gi):
+    """(group gi alone as a table, its default work table, its work table
+    with no group pipelined), on the device."""
+    from oswald_tpu_torch.kernels.sw_lanes import work_table
+    grp = engine.state.groups[gi:gi + 1].contiguous()
+    return grp, work_table(grp), work_table(grp, 1 << 30)
+
+
 def kernel_vs_plain(engine, queries):
     """Phase 3: sw_groups against sw_groups_ref on one group of every bin.
     Returns (max_abs_err, kernel ms, plain ms, bound ms, bound by, wants):
@@ -205,13 +251,15 @@ def kernel_vs_plain(engine, queries):
     for m, q in queries:
         qt = torch.as_tensor(q, dtype=torch.int32, device=dev)
         for gi in firsts:
-            grp = st.groups[gi:gi + 1].contiguous()
+            grp, work, row_work = sub_table(engine, gi)
             args = (st.residues, grp, qt, engine.submat_dev, cfg.open_gap,
                     cfg.extend_gap)
-            got, k_ms = timed(lambda: sw_groups(*args, engine.scratch),
+            got, k_ms = timed(lambda: sw_groups(*args, engine.scratch, work),
                               TIMED_RUNS)
             want, p_ms = timed(lambda: sw_groups_ref(*args), 1)
-            err = int((got - want).abs().max())
+            as_rows = sw_groups(*args, engine.scratch, row_work)
+            err = max(int((got - want).abs().max()),
+                      int((as_rows - want).abs().max()))
             worst = max(worst, err)
             if m == queries[0][0]:
                 wants[gi] = want
@@ -231,6 +279,8 @@ def kernel_vs_plain(engine, queries):
         cols * lanes * m,
         cols * lanes + len(firsts) * (8 + 4 * m + 4 * 24 * 24 + 4 * lanes))
     say(f"all bins, m={m}: bound {b_ms:.3f} ms (by {b_by})")
+    hold_to_bound(f"sw_groups, one group of every bin, m={m}", sums[m][0],
+                  b_ms)
     return worst, sums[m][0], sums[m][1], b_ms, b_by, wants
 
 
@@ -339,15 +389,17 @@ def packed_vs_plain(engine, layouts):
             rows = int(segs[:, 1].sum())
             k_sum = p_sum = 0.0
             for gi in firsts:
-                grp = st.groups[gi:gi + 1].contiguous()
+                grp, work, row_work = sub_table(engine, gi)
                 args = (st.residues, grp, qp, segs, engine.submat_dev,
                         cfg.open_gap, cfg.extend_gap)
                 got, k_ms = timed(
-                    lambda: sw_groups_packed(*args, engine.scratch),
+                    lambda: sw_groups_packed(*args, engine.scratch, work),
                     TIMED_RUNS)
                 # the plain version is a launch-bound Python loop: one run
                 want, p_ms = wall_ms(lambda: sw_groups_packed_ref(*args))
-                err = int((got - want).abs().max())
+                as_rows = sw_groups_packed(*args, engine.scratch, row_work)
+                err = max(int((got - want).abs().max()),
+                          int((as_rows - want).abs().max()))
                 worst = max(worst, err)
                 if err:
                     raise AssertionError(
@@ -368,6 +420,8 @@ def packed_vs_plain(engine, layouts):
     first = sums[next(iter(layouts))]
     b_ms, b_by = bound(first[2], first[3])
     say(f"{next(iter(layouts))}: bound {b_ms:.3f} ms (by {b_by})")
+    hold_to_bound(f"sw_groups_packed, {next(iter(layouts))} layout", first[0],
+                  b_ms)
     return worst, first[0], first[1], b_ms, b_by
 
 
@@ -447,29 +501,73 @@ def batched_path(engine, sets, stream_queries, card):
     return total
 
 
+def longest_bin(engine):
+    """[(label, group table, work table)] of the longest bin alone and of
+    one group of it alone, on the device."""
+    from oswald_tpu_torch.kernels.sw_lanes import work_table
+    st = engine.state
+    table = st.groups.cpu().numpy()
+    top = int(table[:, 1].max())
+    longest = st.groups[torch.from_numpy(table[:, 1] == top).to(
+        st.groups.device)].contiguous()
+    one = longest[:1].contiguous()
+    return [(f"the {len(longest)} groups of L={top} alone", longest,
+             work_table(longest)),
+            ("one group of them alone", one, work_table(one))]
+
+
+def whole_and_longest(engine, launch):
+    """CUDA-event times of launch(groups, work) over the whole database,
+    over the longest bin alone and over one group of it alone: (whole
+    milliseconds, the other two as text)."""
+    st = engine.state
+    _, all_ms = timed(lambda: launch(st.groups, st.work), TIMED_RUNS)
+    parts = []
+    for label, groups, work in longest_bin(engine):
+        _, ms = timed(lambda: launch(groups, work), TIMED_RUNS)
+        parts.append(f"{label}: {ms:.2f} ms")
+    return all_ms, "; ".join(parts)
+
+
+def single_tail(engine, queries, card):
+    """sw_groups over the whole database beside its bound, over the longest
+    bin alone and over one group of it alone (the latency case)."""
+    from oswald_tpu_torch.kernels.sw_lanes import sw_groups
+    from oswald_tpu_torch.utils.metrics import gcups
+    st, cfg = engine.state, engine.config
+    for m, q in queries:
+        qt = torch.as_tensor(q, dtype=torch.int32, device=engine.device)
+        all_ms, parts = whole_and_longest(
+            engine, lambda groups, work: sw_groups(
+                st.residues, groups, qt, engine.submat_dev, cfg.open_gap,
+                cfg.extend_gap, engine.scratch, work))
+        b_ms, b_by = bound(st.residues.shape[0] * 1024 * m,
+                           st.residues.numel())
+        say(f"sw_groups over the whole database, m={m}: {all_ms:.2f} ms "
+            f"({gcups(m, engine.db.n_residues, all_ms / 1e3):.1f} GCUPS; "
+            f"bound {b_ms:.2f} ms by {b_by}, {100 * b_ms / all_ms:.0f}% of "
+            f"the time); {parts} [{card}]")
+        hold_to_bound(f"sw_groups over the whole database, m={m}", all_ms,
+                      b_ms)
+
+
 def packed_tail(engine, layout, card):
-    """The first packed launch over the whole database beside the same
-    launch over the longest bin alone (CUDA events)."""
+    """The first packed launch over the whole database beside its bound,
+    over the longest bin alone and over one group of it alone."""
     from oswald_tpu_torch.kernels.sw_lanes import sw_groups_packed
     st, cfg = engine.state, engine.config
     qp, segs = layout[0]
-    table = st.groups.cpu().numpy()
-    longest = st.groups[torch.from_numpy(
-        table[:, 1] == table[:, 1].max()).to(st.groups.device)].contiguous()
-
-    def launch(groups):
-        return sw_groups_packed(st.residues, groups, qp, segs,
-                                engine.submat_dev, cfg.open_gap,
-                                cfg.extend_gap, engine.scratch)
-    _, all_ms = timed(lambda: launch(st.groups), TIMED_RUNS)
-    _, tail_ms = timed(lambda: launch(longest), TIMED_RUNS)
+    all_ms, parts = whole_and_longest(
+        engine, lambda groups, work: sw_groups_packed(
+            st.residues, groups, qp, segs, engine.submat_dev, cfg.open_gap,
+            cfg.extend_gap, engine.scratch, work))
     rows = int(segs[:, 1].sum())
     b_ms, b_by = bound(st.residues.shape[0] * 1024 * rows,
                        st.residues.numel())
     say(f"sw_groups_packed over the whole database, {len(segs)} segments, "
-        f"{rows} rows: {all_ms:.2f} ms (bound {b_ms:.2f} ms by {b_by}); "
-        f"the {len(longest)} groups of L={int(table[:, 1].max())} alone: "
-        f"{tail_ms:.2f} ms [{card}]")
+        f"{rows} rows: {all_ms:.2f} ms (bound {b_ms:.2f} ms by {b_by}, "
+        f"{100 * b_ms / all_ms:.0f}% of the time); {parts} [{card}]")
+    hold_to_bound("sw_groups_packed over the whole database", all_ms, b_ms)
 
 
 def lab_vs_plain(engine, q_long, wants, card):
@@ -532,20 +630,21 @@ def host_stream_breakdown(engine, hs, queries, card):
     events); the whole sweep, with fills, copies and drains (host clock);
     and the host's top-k and moments."""
     from oswald_tpu_torch.engine.search import check_query
-    from oswald_tpu_torch.kernels.sw_lanes import sw_groups
+    from oswald_tpu_torch.kernels.sw_lanes import sw_groups, work_table
     st, cfg = engine.state, engine.config
     k = min(cfg.top, engine.db.n_seqs)
     tables = [st.groups[sl.slot0 // 1024:
                         sl.slot0 // 1024 + sl.groups.shape[0]].contiguous()
               for sl in hs._hs_slices]
+    tables = [(t, work_table(t)) for t in tables]
     for m, q in queries:
         qc = check_query(q, cfg)
         qt = torch.from_numpy(qc).to(engine.device)
 
         def sliced():
-            for table in tables:
+            for table, work in tables:
                 sw_groups(st.residues, table, qt, engine.submat_dev,
-                          cfg.open_gap, cfg.extend_gap, engine.scratch)
+                          cfg.open_gap, cfg.extend_gap, engine.scratch, work)
         _, kernels_ms = timed(sliced, TIMED_RUNS)
         sweeps, reduces = [], []
         for _ in range(TIMED_RUNS):
@@ -707,12 +806,7 @@ def run(device, n_seqs, card, seed=SEED):
     for m, (res, sec) in results.items():
         say(f"search m={m}: {sec:.4f} s, "
             f"{gcups(m, db.n_residues, sec):.1f} GCUPS [{card}]")
-    _, full_ms = timed(lambda: engine.score_all(q_long), TIMED_RUNS)
-    full_b, full_by = bound(engine.state.residues.shape[0] * 1024 * Q_LONG,
-                            engine.state.residues.numel())
-    say(f"sw_groups over the whole database, m={Q_LONG}: {full_ms:.2f} ms "
-        f"({gcups(Q_LONG, db.n_residues, full_ms / 1e3):.1f} GCUPS; bound "
-        f"{full_b:.2f} ms by {full_by}) [{card}]")
+    single_tail(engine, queries, card)
 
     # the batch queries come from their own generator, so the database
     # stays the one the seed gives

@@ -517,11 +517,12 @@ class SearchEngine:
             for (q, segs), n in zip(ops, n_rows):
                 if segs is None:
                     got = sw_groups(residues, sl.groups, q, self.submat_dev,
-                                    cfg.open_gap, cfg.extend_gap, scratch)
+                                    cfg.open_gap, cfg.extend_gap, scratch,
+                                    sl.work)
                 else:
                     got = sw_groups_packed(
                         residues, sl.groups, q, segs, self.submat_dev,
-                        cfg.open_gap, cfg.extend_gap, scratch)
+                        cfg.open_gap, cfg.extend_gap, scratch, sl.work)
                 got = got.reshape(n, -1)
                 for i in range(n):
                     out[row + i, sl.slot0:sl.slot0 + sl.n_slots].copy_(
@@ -611,7 +612,8 @@ class SearchEngine:
         q = torch.from_numpy(check_query(query, self.config)).to(self.device)
         return sw_groups(self.state.residues, self.state.groups, q,
                          self.submat_dev, self.config.open_gap,
-                         self.config.extend_gap, self.scratch).reshape(-1)
+                         self.config.extend_gap, self.scratch,
+                         self.state.work).reshape(-1)
 
     def _dispatch(self, query, query_title: str):
         """Queue one query's search on the device without blocking; returns
@@ -744,7 +746,7 @@ class SearchEngine:
                 st.residues, st.groups,
                 torch.from_numpy(q_packed).to(self.device),
                 torch.from_numpy(segs).to(self.device), self.submat_dev,
-                cfg.open_gap, cfg.extend_gap, self.scratch)
+                cfg.open_gap, cfg.extend_gap, self.scratch, st.work)
             pending.append((idxs, _topk(scores.reshape(len(idxs), -1),
                                         self.valid, self.lnl, k)))
         if rest:

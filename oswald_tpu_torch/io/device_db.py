@@ -3,8 +3,9 @@
 `to_device` turns the host `PackedDB` (oswald_tpu_torch.io.db, possibly
 memory-mapped) into what `sw_groups` reads: every group of every bin back
 to back in one int8 column buffer, plus a table of (first column, L) per
-group.  Slots (one per lane) run in the same order as the JAX engine's:
-bins ascending, groups in bin order.  The JAX engine also pads each bin to
+group, and the kernels' work table for that group table (the launch order,
+`kernels.sw_lanes.work_table`, built once here and bound to the table).
+Slots (one per lane) run in the same order as the JAX engine's: bins ascending, groups in bin order.  The JAX engine also pads each bin to
 a multiple of `group_block` groups; the port has no such padding, so its
 slot vector may be shorter, but its valid slots come in the same order,
 which keeps "lowest slot" meaning "lowest sorted id" on both sides.
@@ -21,12 +22,14 @@ import numpy as np
 import torch
 
 from oswald_tpu_torch.io.db import PackedDB, SUBLANES, LANES, db_len_stats
+from oswald_tpu_torch.kernels.sw_lanes import WorkTable, work_table
 
 
 @dataclasses.dataclass
 class DeviceDB:
     residues: torch.Tensor    # int8[C, 8, 128], groups back to back
     groups: torch.Tensor      # int32[G, 2]: (first column, L)
+    work: WorkTable           # the kernels' launch order over groups
     ids_flat: np.ndarray      # int32[G * 1024] sorted id per slot, -1 = pad
     valid: torch.Tensor       # bool[G * 1024], ids_flat >= 0
     lnl: torch.Tensor         # float32[G * 1024] ln(subject length), 0 = pad
@@ -63,10 +66,12 @@ def to_device(db: PackedDB, device) -> DeviceDB:
         ids.append(np.asarray(db.bins[L]["id"], np.int32).reshape(-1))
         col += G * L
     ids_flat, lnl_flat = _slot_vectors(db, ids)
-    groups = torch.tensor(table, dtype=torch.int32).reshape(-1, 2)
+    host = torch.tensor(table, dtype=torch.int32).reshape(-1, 2)
+    groups = host.to(device)
     return DeviceDB(
         residues=residues,
-        groups=groups.to(device),
+        groups=groups,
+        work=work_table(groups, host=host),
         ids_flat=ids_flat,
         valid=torch.from_numpy(ids_flat >= 0).to(device),
         lnl=torch.from_numpy(lnl_flat).to(device))
@@ -80,6 +85,7 @@ class HostSlice:
     n_cols: int               # residue columns ([8, 128] each) of the slice
     slot0: int                # first slot of the slice
     groups: torch.Tensor      # int32[Gs, 2]: (first column in the slice, L)
+    work: WorkTable           # the kernels' launch order over groups
 
     @property
     def n_bytes(self) -> int:
@@ -117,8 +123,8 @@ def to_host_stream(db: PackedDB, device, slice_mb: int) -> HostStreamDB:
     """Cut the whole database into slices of at most the slice budget.
     A slice holds spans (L, lo, take), windows of whole groups of one bin,
     and may cross bin boundaries; a group larger than the budget is a
-    one-span slice of its own.  Only each slice's group table goes to the
-    device here; the residues stay where the database keeps them."""
+    one-span slice of its own.  Only each slice's group table and work table go to
+    the device here; the residues stay where the database keeps them."""
     device = torch.device(device)
     lanes = SUBLANES * LANES
     total = sum(int(db.bins[L]["seq"].shape[0]) * L * lanes
@@ -130,8 +136,10 @@ def to_host_stream(db: PackedDB, device, slice_mb: int) -> HostStreamDB:
     def close():
         nonlocal spans, table, cols, slot
         if spans:
-            groups = torch.tensor(table, dtype=torch.int32).reshape(-1, 2)
-            slices.append(HostSlice(spans, cols, slot, groups.to(device)))
+            host = torch.tensor(table, dtype=torch.int32).reshape(-1, 2)
+            groups = host.to(device)
+            slices.append(HostSlice(spans, cols, slot, groups,
+                                    work_table(groups, host=host)))
             slot += len(table) * lanes
             spans, table, cols = [], [], 0
 

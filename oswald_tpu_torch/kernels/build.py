@@ -21,19 +21,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "oswald_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the measurement stands beside kBlocksPerSm in csrc/sw_tile.cuh
+BLOCKS_PER_SM = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
     "sw_groups": {
-        "sw_groups_launch": ([_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
-                             _I),
+        "sw_groups_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P,
+                              _P, _P], _I),
         "sw_groups_error_string": ([_I], ctypes.c_char_p),
     },
     "sw_groups_packed": {
-        "sw_groups_packed_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
-                                     _P, _P, _P, _P], _I),
+        "sw_groups_packed_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
+                                     _I, _I, _P, _P, _P, _P], _I),
         "sw_groups_packed_error_string": ([_I], ctypes.c_char_p),
     },
     "sw_groups_lab": {
@@ -46,8 +48,13 @@ SIGNATURES = {
 _libs = {}
 _lock = threading.Lock()
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
-# built by this process
+# built by this process: under the kernel's name its last build's, under
+# (name, blocks per SM) each build's
 build_logs = {}
+
+
+def _keep_log(name: str, log: str):
+    build_logs[name] = build_logs[(name, int(BLOCKS_PER_SM))] = log
 
 
 def nvcc() -> str:
@@ -61,12 +68,16 @@ def nvcc() -> str:
                        "the oswald_tpu_torch kernels")
 
 
+def nvcc_flags():
+    return NVCC_FLAGS + [f"-DSW_BLOCKS_PER_SM={int(BLOCKS_PER_SM)}"]
+
+
 def _sources(name: str):
     return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,7 +92,7 @@ def _compile(name: str, out: Path) -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc(), *nvcc_flags(), "-o", tmp, str(CSRC / f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name} "
@@ -105,23 +116,24 @@ def build_all(names=None):
         with ThreadPoolExecutor(len(todo)) as pool:
             logs = list(pool.map(lambda np_: _compile(*np_), todo))
         for (n, _), log in zip(todo, logs):
-            build_logs[n] = log
+            _keep_log(n, log)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if this source has no build."""
     with _lock:
-        lib = _libs.get(name)
+        key = (name, int(BLOCKS_PER_SM))
+        lib = _libs.get(key)
         if lib is not None:
             return lib
         path = library_path(name)
         if not path.exists():
-            build_logs[name] = _compile(name, path)
+            _keep_log(name, _compile(name, path))
         lib = ctypes.CDLL(str(path))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
-        _libs[name] = lib
+        _libs[key] = lib
         return lib
 
 

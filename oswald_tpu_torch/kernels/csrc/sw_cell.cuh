@@ -1,6 +1,11 @@
-// The Smith-Waterman cell update and the sweep of one query strip, shared by
-// sw_groups.cu (one query per launch) and sw_groups_packed.cu (several
-// queries per launch), so the recurrence exists once.
+// The Smith-Waterman recurrence, the constants of the database layout and the
+// shared-memory matrix, common to every kernel of the port, and sweep_strip:
+// the sweep of one query strip by one thread per subject over all L columns,
+// reading the strip's inputs from global memory column by column.  The engine
+// kernels (sw_groups.cu, sw_groups_packed.cu) sweep by tiles out of shared
+// memory instead (sw_tile.cuh); sweep_strip stays as the `base` body of the
+// kernel lab (sw_groups_lab.cu), which compares column bodies on the
+// one-thread-per-subject geometry.
 //
 // Recurrence (the "fscan" form of oswald_tpu's sw_chunk; gap cost
 // open + k * extend, oe = open + extend, e = extend):
@@ -49,10 +54,11 @@ __device__ __forceinline__ void load_matrix(int32_t* sm,
 // before the cells of column j are computed, so their round trip to memory
 // runs under that work (the last column loads itself again).  Without it
 // they are loaded where they are used.  Measured over a SwissProt-sized
-// database (NVIDIA H100 80GB HBM3, 700 W; PERF.md): sw_groups_packed ran
-// twice as fast with it, because without it nvcc had placed the H load
-// behind the residue's round trip; sw_groups, whose loads nvcc had kept
-// together, ran 5% slower with it.  So each kernel chooses.
+// database at 512 query rows (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+// 141.11 ms in place and 149.14 ms ahead for this body, while bodies that
+// separate the lookups from the chain run 2-4 times slower in place: where
+// nvcc puts three dependent global loads decides the time, which is why the
+// engine kernels no longer load from global memory inside the column loop.
 template <int U, bool kPrefetch>
 __device__ __forceinline__ int32_t sweep_strip(
     const int8_t* __restrict__ res, int32_t* __restrict__ hr,

@@ -1,117 +1,90 @@
-// Score-only affine-gap Smith-Waterman over packed database groups, one
-// subject per thread, for Hopper (sm_90a).
+// Score-only affine-gap Smith-Waterman over packed database groups for
+// Hopper (sm_90a): one query against every group of the database in one
+// launch.
 //
 // Replaces oswald_tpu/kernels/sw_lanes.py::sw_chunk (the Pallas kernel)
-// chained over all column chunks of every bin: one launch scores the query
-// against every group of the database.
+// chained over all column chunks of every bin.
 //
 // Layout.  The database is one flat int8 buffer of columns; a group is L
 // consecutive columns of 1024 residues ([L, 8, 128]: lane = sublane * 128 +
-// lane-in-row), and the group table holds (first column, L) per group.  A
-// block of 128 threads takes one 128-lane row of one group, and thread t
-// scores subject (row, t) alone, so the read of column j is 128 contiguous
-// bytes and no thread waits on another.
+// lane-in-row), and the group table holds (first column, L) per group.  One
+// thread scores one subject at a time, a warp 32 neighbouring subjects, so a
+// column of a warp is 32 contiguous bytes.
 //
-// Recurrence: the cell update and the sweep of one strip are in sw_cell.cuh,
-// shared with sw_groups_packed.cu.
+// Design (sw_tile.cuh has the sweep and the order its barriers enforce):
+// - a work table sorted by descending cost gives every block its item, so
+//   the longest groups start first instead of last;
+// - a short group's item is a 128-lane row, its four warps each sweeping
+//   every strip of U = 16 query rows over their own 32 subjects; a long
+//   group's item is 32 subjects, and the four warps are sets of a pipeline
+//   that take the strips in turn, H and F crossing from set to set through
+//   rings in shared memory, so a long subject's critical path is a quarter
+//   of its strips and only a quarter of them touch the global scratch;
+// - residues and the H/F rows read back from the scratch reach shared memory
+//   by cp.async a tile of 8 columns ahead, so the column loop reads shared
+//   memory and registers only;
+// - the query stays in global memory: a strip reads its 16 row codes once,
+//   to build the strip's 24 x 16 score profile, and shared memory (27 KB,
+//   static) does not grow with the query.
 //
-// Row strips.  The query is swept in strips of U rows.  A thread keeps H and
-// E of its U rows in registers and walks all L columns of its subject; H of
-// the strip's last row and F below it go to a global scratch row of L
-// entries per subject (the same lane-contiguous layout as the residues),
-// which the next strip reads back.  Nothing is carried between blocks.
-//
-// Shared memory holds the substitution matrix (plus a zero row for the
-// padding rows of the last strip) and the query as matrix row offsets, so
-// a lookup is one shared load: the row offset is the same for the whole
-// warp and the 24 entries of a row sit in distinct banks.  The query is
-// padded only to a multiple of U, with rows that score 0 and cannot move
-// the maximum.
-//
-// What bounds it on an H100: integer max-plus ALU work, about 10 operations
-// per cell plus the shared-memory lookup (about 16 instructions per cell
-// once nvcc has fused add-max pairs into VIADDMNMX), and per column of a
-// strip one global-load round trip (residue, H and F) with scratch traffic
-// of 16 / U bytes per cell.  U = 16 ran 5.2x faster than U = 8 over a
-// SwissProt-sized database, with identical scores (NVIDIA H100 80GB HBM3,
-// 700 W; PERF.md).  The DPX intrinsics (__viaddmax_s32, __vimax3_s32)
-// written out and prefetching the next column are measured by the lab
-// variants `dpx` and `pre` of sw_groups_lab.cu, with the column's loads in
-// place and a column ahead (PERF.md has their times).  Left for later work:
-// launching the longest groups first so the last wave does not wait on them.
+// What bounds it on an H100: the INT32 pipe.  The ten additions and maxima
+// of a cell fuse into 5.5 instructions (add-max with a floor of 0, add-max,
+// one three-way max for two cells), at 64 lanes an SM and clock; the bytes
+// (each residue once, each score once) are a thousandth of that.  Tensor cores are not used: wgmma has no max-plus
+// product.  PERF.md has the measured times beside the bound.
 
-#include "sw_cell.cuh"
+#include "sw_tile.cuh"
 
 namespace {
 
 using namespace sw;
 
+struct OneSegment {
+  int m;
+  __device__ void operator()(int, int& r0, int& n) const {
+    r0 = 0;
+    n = m;
+  }
+};
+
 template <int U>
-__global__ void __launch_bounds__(kRowLanes)
+__global__ void __launch_bounds__(kRowLanes, kBlocksPerSm)
 sw_groups_kernel(const int8_t* __restrict__ db,
-                 const int32_t* __restrict__ groups,
+                 const int32_t* __restrict__ groups, int n_groups,
+                 const int32_t* __restrict__ work,
                  const int32_t* __restrict__ query, int m,
                  const int32_t* __restrict__ submat, int oe, int e,
                  int32_t* __restrict__ hrow, int32_t* __restrict__ frow,
                  int32_t* __restrict__ scores) {
-  extern __shared__ int32_t smem[];
-  int32_t* sm = smem;                                // [25, 24]
-  int32_t* qoff = smem + kMatrixWords;               // [m_pad]
-  const int m_pad = (m + U - 1) / U * U;
-  load_matrix(sm, submat);
-  for (int i = threadIdx.x; i < m_pad; i += kRowLanes)
-    qoff[i] = (i < m ? query[i] : kZeroRow) * kAlpha;
-  __syncthreads();
-
-  const int g = blockIdx.x / kRowsPerGroup;
-  const int row = blockIdx.x % kRowsPerGroup;
-  const size_t base = (size_t)groups[2 * g] * kGroupLanes +
-                      (size_t)row * kRowLanes + threadIdx.x;
-  const int L = groups[2 * g + 1];
-
-  int32_t best = 0;
-  for (int i0 = 0; i0 < m_pad; i0 += U) {
-    int32_t qo[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) qo[u] = qoff[i0 + u];
-    // loads stay where they are used: prefetching them ran 5% slower here
-    best = sweep_strip<U, false>(db + base, hrow + base, frow + base, L, qo,
-                                 sm, oe, e, i0 == 0, i0 + U >= m_pad, best);
-  }
-  scores[(size_t)g * kGroupLanes + (size_t)row * kRowLanes + threadIdx.x] =
-      best;
+  __shared__ BlockShared S;
+  init_block(S, submat);
+  score_item<U>(S, db, groups, n_groups, work, query, 1, OneSegment{m}, oe, e,
+                hrow, frow, scores);
 }
 
 }  // namespace
 
-// Scores query[0:m] against every group; scores is int32[n_groups, 8, 128].
-// hrow and frow are int32 scratch of the residue buffer's size.  Launches
+// Scores query[0:m] against every group; scores is int32[n_groups, 8, 128],
+// zeroed by the caller.  work is int32[n_items, 2], the (group, part) items
+// in launch order (sw_lanes.work_table).  hrow and frow are int32 scratch of
+// the residue buffer's size; they and db must be 16-byte aligned.  Launches
 // on `stream` without synchronising and returns cudaGetLastError().
 extern "C" int sw_groups_launch(const void* db, const void* groups,
-                                int n_groups, const void* query, int m,
-                                const void* submat, int open_gap,
-                                int extend_gap, void* hrow, void* frow,
-                                void* scores, void* stream) {
-  constexpr int U = kStripRows;
-  if (n_groups <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+                                int n_groups, const void* work, int n_items,
+                                const void* query, int m, const void* submat,
+                                int open_gap, int extend_gap, void* hrow,
+                                void* frow, void* scores, void* stream) {
+  if (n_groups <= 0 || n_items <= 0 || m <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(db) || !aligned16(hrow) || !aligned16(frow))
+    return (int)cudaErrorMisalignedAddress;
   (void)cudaGetLastError();   // drop a refused call's error from before
-  const int m_pad = (m + U - 1) / U * U;
-  const size_t shmem = ((size_t)kMatrixWords + m_pad) * sizeof(int32_t);
-  if (shmem > 48 * 1024) {
-    // a query too long for the card's shared memory is refused here
-    const cudaError_t err = cudaFuncSetAttribute(
-        sw_groups_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
-    if (err != cudaSuccess) {
-      (void)cudaGetLastError();
-      return (int)err;
-    }
-  }
-  sw_groups_kernel<U><<<n_groups * kRowsPerGroup, kRowLanes, shmem,
-                        (cudaStream_t)stream>>>(
-      (const int8_t*)db, (const int32_t*)groups, (const int32_t*)query, m,
-      (const int32_t*)submat, open_gap + extend_gap, extend_gap,
-      (int32_t*)hrow, (int32_t*)frow, (int32_t*)scores);
+  sw_groups_kernel<kStripRows><<<n_items, kRowLanes, 0,
+                                 (cudaStream_t)stream>>>(
+      (const int8_t*)db, (const int32_t*)groups, n_groups,
+      (const int32_t*)work, (const int32_t*)query, m, (const int32_t*)submat,
+      open_gap + extend_gap, extend_gap, (int32_t*)hrow, (int32_t*)frow,
+      (int32_t*)scores);
   return (int)cudaGetLastError();
 }
 

@@ -4,18 +4,19 @@
 // Replaces scripts/kernel_lab.py::sw_chunk_lab (the Pallas lab kernel) chained
 // over a bin as its _scan_bin chains it: one launch scores the query against
 // every group of the table and returns the int32 per-lane scores, which every
-// variant must give equal to sw_groups'.  Layout, launch geometry, scratch
-// and the shared matrix are those of sw_groups.cu (one block of 128 threads
-// per 128-lane row of a group, one subject per thread, strips of U = 16 query
-// rows in registers, H and F rows between strips in a global scratch); only
-// the column body differs, one template instantiation per variant
-// (sw_cell_lab.cuh lists them) and placement of the column's loads.  `base`
-// with the loads in place is the shipping sw::sweep_strip<16, false>, so its
-// time is sw_groups' time; with the loads ahead it is sw_groups_packed's
-// sweep_strip<16, true>.
+// variant must give equal to sw_groups'.  The database layout, the scratch
+// and the shared matrix are those of sw_groups.cu; the geometry is the lab's
+// own, one thread per subject for the whole sweep (one block of 128 threads
+// per 128-lane row of a group in table order, strips of
+// U = 16 query rows in registers, every strip in turn over all L columns, H
+// and F rows between strips in a global scratch, the query as row offsets in
+// shared memory); only the column body differs, one template instantiation
+// per variant (sw_cell_lab.cuh lists them) and placement of the column's
+// loads.  `base` is sw::sweep_strip<16, kAhead> (sw_cell.cuh).
 //
-// What bounds it on an H100 is what bounds sw_groups: integer max-plus work,
-// 10 operations per cell of the recurrence whatever body carries it out.  The
+// What bounds the work on an H100 is what bounds sw_groups: the INT32 pipe, at
+// best 5.5 fused instructions per cell of the recurrence whatever body carries
+// it out (only the dpx body uses the fused forms).  The
 // lab exists to measure what the order of that work inside a column is worth:
 // a shorter dependent chain (fscan, ks), fewer operations (pmax, noadj, dpx),
 // score words loaded ahead of the chain (pre), and the column's three global

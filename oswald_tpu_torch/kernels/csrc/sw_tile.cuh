@@ -1,0 +1,414 @@
+// The sweep of the two engine kernels (sw_groups.cu, sw_groups_packed.cu):
+// strips of U query rows over column tiles of T columns, one warp per strip,
+// every operand of the column loop in shared memory or registers.
+//
+// Work items.  A launch is a list of items sorted by descending cost
+// (sw_lanes.work_table), one block of kSets warps per item, taken by
+// blockIdx, so the longest subjects start first and the short ones fill the
+// card behind them.  An item is (group, part):
+//
+//   part < 8    short role: the 128-lane row `part` of the group.  Warp q owns
+//               lanes 32 q .. 32 q + 31 and sweeps every strip of every
+//               segment in turn.
+//   part >= 8   long role: the 32 lanes of slab part - 8 of the group (row
+//               slab / 4, quarter slab % 4).  The kSets warps of the block are
+//               sets of a pipeline over those 32 subjects: the strips of all
+//               segments, numbered k = 0, 1, ... in order, go to set k % kSets.
+//               The critical path of a subject falls from every strip in turn
+//               to a kSets-th of them plus a fill of kSets - 1 tiles.
+//
+// Hand-over.  A strip passes H of its last row and the F leaving it, column
+// by column, to the strip below.  Every warp has an input ring of kSlots
+// tiles in shared memory, [slot][H or F][column][lane].  It is filled
+//   - by the warp itself with cp.async (16-byte, L2 only) from the global
+//     scratch rows, one tile ahead of the sweep, when the strip above was
+//     swept by the same warp (short role) or by the last set in the round
+//     before (set 0 of the long role);
+//   - by set w - 1 storing straight into set w's ring (long role), a full and
+//     an empty mbarrier per slot ordering the two warps.
+// The residues of a tile are staged the same way (one 16-byte cp.async per
+// lane), so the column loop never waits on global memory.  The output of a
+// strip goes to the next set's ring, or with plain stores (which nothing
+// waits on) to the scratch rows.
+//
+// Order on the scratch rows (why reuse in place is safe).  Position (column
+// j, lane) is written by strip s and read by strip s + 1 only.  In the short
+// role both are the same warp: strip s + 1 starts its first cp.async after the
+// last store of strip s and a __syncwarp.  In the long role set 0 and the
+// last set each publish, after every tile, the number of tiles they have
+// finished (`progress`), the last set behind a __threadfence.  Set 0 starts
+// the cp.async of tile c of its strip k only when the last set has finished
+// tile c of strip k - 1, and the last set stores tile c of its strip
+// k + kSets - 1 only when set 0 has finished tile c of strip k: a segment
+// that starts between the two cuts the chain of hand-overs that would
+// otherwise keep the last set behind set 0.
+//
+// All waiting is between warps of one block (mbarriers and one counter in
+// shared memory): no block waits on another.  Tensor cores are not used:
+// wgmma has no max-plus product.
+
+#pragma once
+
+#include "sw_cell.cuh"
+
+namespace sw {
+
+constexpr int kTileCols = 8;        // T: columns of one staged tile
+constexpr int kSets = 4;            // W: warps of a block, sets of the pipeline
+constexpr int kWarpLanes = 32;
+constexpr int kSlots = 2;           // tiles of an input ring
+constexpr int kQuarters = kRowLanes / kWarpLanes;
+// Blocks an SM must hold, which caps the registers of a thread.  The build
+// sets it (kernels/build.py: BLOCKS_PER_SM, which also sizes the card for the
+// work table), so the value stands in one place.
+// Measured on the final sweep over a SwissProt-sized database (NVIDIA H100
+// 80GB HBM3, 700.00 W; `python -m oswald_tpu_torch.lab --blocks-per-sm
+// 4,3,5,4`; sw_groups at m = 512 / sw_groups_packed at 2 x 512 / at 8 x 65
+// rows): 3 blocks, 94 and 128 registers: 39.37 / 80.07 / 48.20 ms; 4 blocks,
+// 120 and 128 registers: 39.65 / 80.43 / 48.45 ms (again: 39.65 / 80.47 /
+// 48.46); 5 blocks, 87 and 93 registers: 40.47 / 78.65 / 47.04 ms; no build
+// spills.  Flat within 3%: the sweep is bound by the integer pipe, not by
+// latency, so more resident warps buy nothing.  4 is shipped: it is what
+// both kernels' registers hold in fact (at 3, sw_groups' 94 registers hold 5
+// and the packed kernel's 128 hold 4), so the launch bounds, the registers
+// and sw_lanes.CARD_BLOCKS describe the same kernel.  (An
+// earlier body, with matrix lookups in the column loop, took 55.0 / 47.8 /
+// 45.8 / 46.1 ms at 6 / 5 / 4 / 3 blocks and spilled at 6.)
+#ifndef SW_BLOCKS_PER_SM
+#error "SW_BLOCKS_PER_SM is not set: build through oswald_tpu_torch/kernels/build.py"
+#endif
+constexpr int kBlocksPerSm = SW_BLOCKS_PER_SM;
+
+static_assert(kSets * kWarpLanes == kRowLanes, "a block is one 128-lane row");
+static_assert(kTileCols * kWarpLanes * 4 / 16 % kWarpLanes == 0,
+              "the 16-byte chunks of an H tile divide among the lanes");
+static_assert(2 * kTileCols <= kWarpLanes,
+              "the 16-byte chunks of a residue tile fit one per lane");
+
+struct __align__(16) WarpShared {
+  int32_t hf[kSlots][2][kTileCols][kWarpLanes];   // input ring: H, F
+  int8_t res[2][kTileCols][kWarpLanes];           // staged residues
+  // the strip's scores: [rows u / 4][residue][row u % 4], so the 16 scores
+  // of a residue are four 16-byte words
+  int32_t prof[kStripRows / 4][kAlpha][4];
+  unsigned long long full[kSlots], empty[kSlots]; // mbarriers of the ring
+};
+
+struct __align__(16) BlockShared {
+  int32_t sm[kMatrixWords];         // 24 x 24 matrix and a row of zeros
+  WarpShared warp[kSets];
+  int progress[2];                  // tiles finished by set 0, by the last set
+};
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   shared_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+// Returns when the phase of parity `parity` has completed (at once for
+// parity 1 on a barrier no phase of which has completed).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  const uint32_t addr = shared_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Once per block, before the first sweep: the matrix, the barriers (one
+// arrival each: lane 0 of the warp that filled or drained the slot) and the
+// counter.
+__device__ __forceinline__ void init_block(BlockShared& S,
+                                           const int32_t* __restrict__ submat) {
+  load_matrix(S.sm, submat);
+  if (threadIdx.x < kSets) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&S.warp[threadIdx.x].full[s], 1);
+      mbar_init(&S.warp[threadIdx.x].empty[s], 1);
+    }
+  }
+  if (threadIdx.x == 0) {
+    S.progress[0] = S.progress[1] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// What a warp carries from strip to strip of one item.
+struct WarpState {
+  int set;          // this warp's set (0 in the short role)
+  int sets;         // sets of the pipeline (1 in the short role)
+  int n_in;         // tiles taken from the input ring so far
+  int n_out;        // tiles stored into the next set's ring so far
+  int n_done;       // tiles swept so far
+};
+
+// One warp sweeps one strip of U rows over the L columns of its 32 subjects.
+// qrow points at the strip's first row code, of which nrow (or more) are
+// left in the segment; rows past them score 0.  res, hrow and frow point at
+// lane 0 of the slab in column 0; consecutive columns are kGroupLanes
+// entries apart.
+// Unless `first`, H above the strip and F entering it come through the input
+// ring; unless `last`, H of the strip's last row and F leaving it go to the
+// next set's ring or to hrow/frow.  Returns the maximum of `best` and every
+// cur' of the strip.
+//
+// The sweep is bound by the integer pipe (PERF.md), so the column loop is
+// written for few integer instructions: the cell update is sweep_strip's
+// (sw_cell.cuh) in Hopper's fused add-max and three-way max forms, and the
+// 16 scores of a column come as four 16-byte loads from a profile of the
+// strip (24 residues x U rows, built in shared memory at the head of the
+// strip) instead of 16 address sums and 16 loads from the matrix.  Measured
+// over a SwissProt-sized database at m = 512 (NVIDIA H100 80GB HBM3,
+// 700.00 W): 46.1 ms with lookups in the matrix, 41.3 ms with the profile,
+// 39.4 ms with the three-way max as well.
+template <int U>
+__device__ __forceinline__ int32_t sweep_tiles(
+    BlockShared& S, WarpState& st, const int8_t* __restrict__ res,
+    int32_t* __restrict__ hrow, int32_t* __restrict__ frow, int L,
+    const int32_t* __restrict__ qrow, int nrow, int oe, int e, bool first,
+    bool last, int32_t best) {
+  static_assert(U == kStripRows && U % 4 == 0, "the profile holds U rows");
+  constexpr int T = kTileCols;
+  const int lane = threadIdx.x % kWarpLanes;
+  const int n_tiles = (L + T - 1) / T;
+  // every warp has its own ring; in the long role warp w is set w
+  const int warp = threadIdx.x / kWarpLanes;
+  WarpShared& in = S.warp[warp];
+  const bool from_ring = !first && st.set > 0;
+  const bool from_scratch = !first && st.set == 0;
+  const bool to_ring = !last && st.set + 1 < st.sets;
+  const bool to_scratch = !last && st.set + 1 == st.sets;
+  // which counter of `progress` this warp publishes: set 0 and the last
+  // set of a pipeline do
+  const int publishes = st.sets == 1 ? -1 : st.set == 0 ? 0 :
+                        st.set + 1 == st.sets ? 1 : -1;
+  // set 0 of a pipeline reads what the last set wrote a round ago: tile c
+  // may be fetched once the last set has finished `gate + c` tiles
+  const bool gated = from_scratch && st.sets > 1;
+  const int gate = st.n_done - n_tiles + 1;
+  // the last set overwrites what set 0 read in the same round: tile c may
+  // be stored once set 0 has finished `st.n_done + c + 1` tiles
+  const bool held = to_scratch && st.sets > 1;
+  const int hold = st.n_done + 1;
+  const int32_t* sm = S.sm;
+
+  auto fetch = [&](int c) {
+    const int cols = min(T, L - c * T);
+    if (gated) {
+      while (*(volatile int*)&S.progress[1] < gate + c) __nanosleep(32);
+      __threadfence();
+    }
+    // residues: 16-byte chunk lane % 2 of column lane / 2
+    if (lane < 2 * T && lane / 2 < cols)
+      cp_async16(&in.res[c & 1][lane / 2][(lane % 2) * 16],
+                 res + (size_t)(c * T + lane / 2) * kGroupLanes +
+                     (lane % 2) * 16);
+    if (from_scratch) {
+#pragma unroll
+      for (int i = 0; i < T * 8 / kWarpLanes; ++i) {
+        // H and F: 16-byte chunk q % 8 of column q / 8
+        const int q = i * kWarpLanes + lane;
+        if (q / 8 < cols) {
+          const size_t g = (size_t)(c * T + q / 8) * kGroupLanes + (q % 8) * 4;
+          cp_async16(&in.hf[c & 1][0][q / 8][(q % 8) * 4], hrow + g);
+          cp_async16(&in.hf[c & 1][1][q / 8][(q % 8) * 4], frow + g);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  int32_t hl[U], ee[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    hl[u] = 0;                      // H[i0 + u][j - 1]
+    ee[u] = 0;                      // E[i0 + u][j]
+  }
+  int32_t hprev = 0;                // H[i0 - 1][j - 1]
+  __syncwarp();                     // the strip before is stored and read
+  if (n_tiles > 0) fetch(0);
+  // the profile; the first __syncwarp of the tile loop publishes it
+  for (int i = lane; i < U * kAlpha; i += kWarpLanes) {
+    const int k = i / (4 * kAlpha), r = i / 4 % kAlpha, u = k * 4 + i % 4;
+    (&in.prof[0][0][0])[i] =
+        sm[(u < nrow ? __ldg(qrow + u) : kZeroRow) * kAlpha + r];
+  }
+  for (int c = 0; c < n_tiles; ++c) {
+    cp_async_wait_all();
+    __syncwarp();                   // tile c has landed; tile c - 1 is read
+    if (c + 1 < n_tiles) fetch(c + 1);
+    const int cols = min(T, L - c * T);
+    // where this tile's H and F come from and go to
+    int slot = c & 1;
+    if (from_ring) {
+      slot = st.n_in % kSlots;
+      mbar_wait(&in.full[slot], (st.n_in / kSlots) & 1);
+    }
+    const int32_t* in_h = &in.hf[slot][0][0][lane];
+    const int32_t* in_f = &in.hf[slot][1][0][lane];
+    int32_t* out_h = hrow + (size_t)c * T * kGroupLanes + lane;
+    int32_t* out_f = frow + (size_t)c * T * kGroupLanes + lane;
+    int out_step = kGroupLanes;
+    int out_slot = 0;
+    if (to_ring) {
+      WarpShared& next = S.warp[warp + 1];
+      out_slot = st.n_out % kSlots;
+      mbar_wait(&next.empty[out_slot], ((st.n_out / kSlots) & 1) ^ 1);
+      out_h = &next.hf[out_slot][0][0][lane];
+      out_f = &next.hf[out_slot][1][0][lane];
+      out_step = kWarpLanes;
+    }
+    if (held)
+      while (*(volatile int*)&S.progress[0] < hold + c) __nanosleep(32);
+    const int8_t* rs = &in.res[c & 1][0][lane];
+    // column j + 1's operands leave shared memory before column j's chain
+    int r_next = rs[0];
+    int32_t hup_next = first ? 0 : in_h[0];
+    int32_t f_next = first ? 0 : in_f[0];
+    for (int j = 0; j < cols; ++j) {
+      const int r = r_next;
+      const int32_t hup = hup_next;   // H[i0 - 1][j]
+      int32_t f = f_next;             // F[i0][j]
+      const int jn = min(j + 1, cols - 1) * kWarpLanes;
+      r_next = rs[jn];
+      if (!first) {
+        hup_next = in_h[jn];
+        f_next = in_f[jn];
+      }
+      int32_t diag = hprev;
+      int32_t sc[U];                  // scores of the U rows against r
+      const int4* pr = reinterpret_cast<const int4*>(&in.prof[0][0][0]) + r;
+#pragma unroll
+      for (int k = 0; k < U / 4; ++k) {
+        const int4 v = pr[k * kAlpha];
+        sc[4 * k] = v.x;
+        sc[4 * k + 1] = v.y;
+        sc[4 * k + 2] = v.z;
+        sc[4 * k + 3] = v.w;
+      }
+      int32_t cp_even = 0;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int32_t cp = __viaddmax_s32_relu(diag, sc[u], ee[u]);
+        const int32_t cc = cp - oe;
+        if (u % 2 == 0)
+          cp_even = cp;
+        else
+          best = __vimax3_s32(best, cp_even, cp);
+        diag = hl[u];
+        hl[u] = max(cp, f);
+        ee[u] = __viaddmax_s32(ee[u], -e, cc);
+        f = __viaddmax_s32(f, -e, cc);
+      }
+      if (!last) {
+        out_h[j * out_step] = hl[U - 1];
+        out_f[j * out_step] = f;
+      }
+      hprev = hup;
+    }
+    ++st.n_done;
+    if (from_ring || to_ring || publishes >= 0) {
+      __syncwarp();                 // every lane has read and stored
+      if (lane == 0) {
+        if (from_ring) mbar_arrive(&in.empty[slot]);
+        if (to_ring) mbar_arrive(&S.warp[warp + 1].full[out_slot]);
+        if (publishes >= 0) {
+          if (to_scratch) __threadfence();
+          *(volatile int*)&S.progress[publishes] = st.n_done;
+        }
+      }
+    }
+    if (from_ring) ++st.n_in;
+    if (to_ring) ++st.n_out;
+  }
+  return best;
+}
+
+// One block scores one work item for every segment.  `seg(s, r0, n)` gives
+// segment s as (first row, row count) into q; scores is int32[n_segs,
+// n_groups, 8, 128], zeroed before the launch (the sets of the long role
+// merge their maxima with atomicMax).
+template <int U, class Seg>
+__device__ __forceinline__ void score_item(
+    BlockShared& S, const int8_t* __restrict__ db,
+    const int32_t* __restrict__ groups, int n_groups,
+    const int32_t* __restrict__ work, const int32_t* __restrict__ q,
+    int n_segs, Seg seg, int oe, int e, int32_t* __restrict__ hrow,
+    int32_t* __restrict__ frow, int32_t* __restrict__ scores) {
+  const int warp = threadIdx.x / kWarpLanes;
+  const int lane = threadIdx.x % kWarpLanes;
+  const int g = work[2 * blockIdx.x];
+  const int part = work[2 * blockIdx.x + 1];
+  const bool pipelined = part >= kRowsPerGroup;
+  const int slab = pipelined ? part - kRowsPerGroup : part * kQuarters + warp;
+  WarpState st = {pipelined ? warp : 0, pipelined ? kSets : 1, 0, 0, 0};
+  const size_t lane0 = (size_t)slab * kWarpLanes;
+  const size_t base = (size_t)groups[2 * g] * kGroupLanes + lane0;
+  const int L = groups[2 * g + 1];
+
+  int k0 = 0;                       // strips before this segment, mod sets
+  for (int s = 0; s < n_segs; ++s) {
+    int r0, n;
+    seg(s, r0, n);
+    const int n_strips = (n + U - 1) / U;
+    int32_t best = 0;
+    for (int t = (st.set - k0 + st.sets) % st.sets; t < n_strips;
+         t += st.sets) {
+      best = sweep_tiles<U>(S, st, db + base, hrow + base, frow + base, L,
+                            q + r0 + t * U, n - t * U, oe, e, t == 0,
+                            t == n_strips - 1, best);
+    }
+    k0 = (k0 + n_strips) % st.sets;
+    int32_t* out = scores + ((size_t)s * n_groups + g) * kGroupLanes + lane0 +
+                   lane;
+    if (!pipelined)
+      *out = best;
+    else if (best > 0)
+      atomicMax(out, best);
+  }
+}
+
+// True where the 16-byte copies of the sweep can address the buffer.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace sw

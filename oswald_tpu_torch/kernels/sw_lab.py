@@ -5,8 +5,8 @@ over a bin (its `_scan_bin`): the int32 score of the query against every
 lane of every group, which every variant must give equal to `sw_groups`'.
 The variants are exact rewrites of one recurrence that order the work inside
 a column of U = 16 query rows differently (`csrc/sw_cell_lab.cuh` describes
-each): `base` (the shipping body), `fscan`, `pmax`, `noadj`, `ks`, `pre`, and
-`dpx` (Hopper's fused add-max instructions written out).  Beside the body,
+each): `base` (`sweep_strip`, the one-chain body), `fscan`, `pmax`, `noadj`,
+`ks`, `pre`, and `dpx` (Hopper's fused add-max instructions written out).  Beside the body,
 `load_ahead` chooses where the kernel places a column's three global loads
 (residue, H, F): where they are used, or one column ahead of the chain; the
 plain version has no such choice.  On a CUDA tensor the wrapper launches

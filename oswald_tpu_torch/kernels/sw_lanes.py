@@ -17,6 +17,12 @@ Inputs (all on one device, contiguous):
                                 call when None)
 Gap cost is open_gap + k * extend_gap.  Returns int32[G, 8, 128].
 
+`work` (optional, both functions) is the launch's `WorkTable` from
+`work_table(groups)`: the items (group, part) in launch order, bound to the
+`groups` tensor they were built for; any other pairing is refused.  Without
+it the wrapper takes `work_table(groups)`, which is built once for a tensor
+and kept on it.  The plain versions ignore it.
+
 `sw_groups_packed` is the port of `sw_chunk` with `q_segs > 1` and with
 `seg_map`: several independent queries packed along the rows and scored in
 one call.  It takes `q_packed int32[m_tot]` (the packed rows) and
@@ -24,14 +30,45 @@ one call.  It takes `q_packed int32[m_tot]` (the packed rows) and
 the same device) in place of `query`, and returns int32[S, G, 8, 128].  On
 a CUDA tensor it launches `csrc/sw_groups_packed.cu`; on a CPU tensor it
 runs `sw_groups_packed_ref`.
+
+`sw_groups_tiled_ref` and `sw_groups_packed_tiled_ref` are plain PyTorch too,
+but carry out the kernels' own decomposition (`csrc/sw_tile.cuh`): the items
+of the work table in order, strips of STRIP_ROWS rows dealt to the sets of an
+item, column tiles of TILE_COLS, H and F handed from strip to strip and tile
+to tile, the sets' maxima merged at the end.  They exist so that the algebra
+of the hand-over is tested where there is no card.
 """
 
+import weakref
+
+import numpy as np
 import torch
 
 from oswald_tpu_torch.kernels import build
 
 GROUP_SHAPE = (8, 128)
 ALPHA_SIZE = 24
+# the kernels' geometry (csrc/sw_cell.cuh, csrc/sw_tile.cuh)
+STRIP_ROWS = 16       # U: query rows of one strip
+TILE_COLS = 8         # T: columns of one staged tile
+SETS = 4              # W: warps of a block; sets of a long item's pipeline
+ROWS_PER_GROUP = GROUP_SHAPE[0]
+SLABS_PER_GROUP = ROWS_PER_GROUP * SETS     # 32-lane slabs of a group
+# groups of at least this many columns are dealt out as 32-lane slabs whose
+# strips the four warps pipeline (the long role); shorter ones as 128-lane
+# rows.  Measured over a SwissProt-sized database (NVIDIA H100 80GB HBM3,
+# 700.00 W; `python -m oswald_tpu_torch.lab --long-from ...`): sw_groups at
+# 512 rows takes 38.63 / 39.02 / 40.11 ms from 512 / 1024 / 2048 columns on,
+# sw_groups_packed at 2 x 512 rows 80.51 / 80.09 / 81.16 ms, at 8 x 65 rows
+# 49.17 / 48.50 / 48.35 ms: flat.  An earlier build of the same design took
+# 55.0 ms from 1024 on, 54.8 from 4096 on (packed 2 x 512: 101.0 against
+# 121.3) and 76.9 ms with no group pipelined (packed: 190.8).
+LONG_FROM = 1024
+# a table of fewer row items than an H100 holds blocks (132 SMs, the blocks
+# per SM the kernels are built for) leaves it partly idle, so all of its
+# groups are pipelined: four times the blocks, each with a quarter of the
+# critical path
+CARD_BLOCKS = 132 * build.BLOCKS_PER_SM
 
 # kernel launches made by sw_groups in this process (the wrapper adds one
 # per launch and nowhere else; callers reset it to count a run's launches)
@@ -40,7 +77,7 @@ launches = 0
 launches_packed = 0
 
 
-def _check(residues, groups, query, submat, scratch, segs=None):
+def _check(residues, groups, query, submat, scratch, segs=None, work=None):
     dev = residues.device
     named = {"residues": (residues, torch.int8),
              "groups": (groups, torch.int32),
@@ -75,74 +112,171 @@ def _check(residues, groups, query, submat, scratch, segs=None):
     if tuple(submat.shape) != (ALPHA_SIZE, ALPHA_SIZE):
         raise ValueError(f"sw_groups: submat must be [24, 24], got "
                          f"{tuple(submat.shape)}")
+    if work is not None:
+        if not isinstance(work, WorkTable):
+            raise ValueError(f"sw_groups: work must be the WorkTable of "
+                             f"work_table(groups), got {type(work).__name__}")
+        if not work.is_for(groups):
+            raise ValueError("sw_groups: work was built for another group "
+                             "table, or groups was written since")
     if scratch is not None and tuple(scratch.shape) != (2,) + tuple(
             residues.shape):
         raise ValueError(f"sw_groups: scratch must be [2, C, 8, 128], got "
                          f"{tuple(scratch.shape)}")
 
 
+class WorkTable:
+    """The launch order of one group table, bound to it.
+
+    `items` is int32[N, 2] on the groups' device: (group, part) in launch
+    order.  A group dealt out as rows has the 8 parts 0..7, a pipelined one
+    the 32 parts 8..39.  The kernels index the group table and the scores
+    with these items unchecked, so the constructor holds them to the table
+    (every group exactly once, in one role; this copies `items` to the host)
+    and `is_for` lets only that `groups` tensor, unwritten since, launch
+    with them."""
+
+    def __init__(self, items, groups):
+        n = groups.shape[0]
+        if items.dtype != torch.int32 or items.dim() != 2 or \
+                items.shape[1] != 2 or not items.is_contiguous() or \
+                items.device != groups.device:
+            raise ValueError(f"sw_groups: work items must be contiguous "
+                             f"int32[N, 2] on {groups.device}, got "
+                             f"{items.dtype}{list(items.shape)} on "
+                             f"{items.device}")
+        it = items.cpu().numpy()
+        it = it[np.lexsort((it[:, 1], it[:, 0]))]
+        ok = len(it) == 0 and n == 0
+        if len(it) and 0 <= it[0, 0] and it[-1, 0] < n:
+            counts = np.bincount(it[:, 0], minlength=n)
+            piped = counts == SLABS_PER_GROUP
+            first = np.cumsum(counts) - counts
+            want = np.arange(len(it)) - np.repeat(first, counts) + \
+                np.repeat(np.where(piped, ROWS_PER_GROUP, 0), counts)
+            ok = bool(((counts == ROWS_PER_GROUP) | piped).all()) and \
+                np.array_equal(it[:, 1], want)
+        if not ok:
+            raise ValueError(f"sw_groups: work items are no launch order of "
+                             f"these {n} groups: every group needs its parts "
+                             f"0..7 or 8..39 exactly once")
+        self.items = items
+        self._groups = weakref.ref(groups)
+        self._version = groups._version
+
+    def __len__(self):
+        return self.items.shape[0]
+
+    def is_for(self, groups) -> bool:
+        return self._groups() is groups and self._version == groups._version
+
+
+def work_table(groups, long_from: int = None, host=None) -> WorkTable:
+    """The launch order of a group table: a WorkTable whose items (group,
+    part) are sorted by descending cost, equal costs in (group, part) order.
+
+    A group of fewer than `long_from` columns gives 8 items, part = its
+    128-lane row 0..7, each of cost 4 L; a longer one 32 items, part = 8 +
+    its 32-lane slab 0..31, each of cost L (four warps share the strips of
+    one slab).  By default `long_from` is LONG_FROM for a table whose rows
+    fill the card (CARD_BLOCKS items or more) and 0 for a smaller one: a
+    single group, or a small slice of a streamed database, is pipelined
+    whatever its length.  The cost of an item is its block's
+    critical path in columns per strip, the same for every query, so one
+    table serves both kernels and every launch on `groups`.
+
+    groups: int32[G, 2] (first column, L), a tensor (an array becomes a CPU
+    tensor); the items go to its device.  The table is built on the host,
+    from `host` (an array or CPU tensor equal to `groups`) where the caller
+    has one, else from a copy of `groups`, which synchronises a CUDA device.
+    The default table (`long_from` None) is kept on the tensor and returned
+    again until the tensor is written."""
+    if not isinstance(groups, torch.Tensor):
+        groups = torch.from_numpy(np.ascontiguousarray(groups, np.int32))
+    kept = getattr(groups, "_sw_work_table", None)
+    if long_from is None and kept is not None and kept.is_for(groups):
+        return kept
+    table = np.asarray(host if host is not None else groups.cpu())
+    L = table.reshape(-1, 2)[:, 1].astype(np.int64)
+    default = long_from is None
+    if default:
+        long_from = LONG_FROM if ROWS_PER_GROUP * len(L) >= CARD_BLOCKS else 0
+    is_long = L >= long_from
+    n_parts = np.where(is_long, SLABS_PER_GROUP, ROWS_PER_GROUP)
+    g = np.repeat(np.arange(len(L)), n_parts)
+    first = np.cumsum(n_parts) - n_parts
+    part = np.arange(len(g)) - np.repeat(first, n_parts) + \
+        np.where(is_long, ROWS_PER_GROUP, 0)[g]
+    cost = np.where(is_long, L, SETS * L)[g]
+    order = np.argsort(-cost, kind="stable")
+    items = np.stack([g[order], part[order]], axis=1).astype(np.int32)
+    work = WorkTable(torch.from_numpy(items).to(groups.device), groups)
+    if default:
+        groups._sw_work_table = work
+    return work
+
+
+def _launch(name, residues, groups, rows, segs, submat, open_gap,
+            extend_gap, scratch, work):
+    """Launch kernel `name` on tensors that passed _check.  Returns
+    (int32[S, G, 8, 128], whether a kernel was launched: an empty table
+    launches nothing)."""
+    dev = residues.device
+    if dev.type != "cuda":
+        raise ValueError(f"sw_groups: no kernel for device {dev}")
+    n = groups.shape[0]
+    n_segs = 1 if segs is None else segs.shape[0]
+    # zeroed: the sets of a long item merge their maxima into it
+    out = torch.zeros((n_segs, n) + GROUP_SHAPE, dtype=torch.int32,
+                      device=dev)
+    if n == 0:
+        return out, False
+    if work is None:
+        work = work_table(groups)
+    if scratch is None:
+        scratch = torch.empty((2,) + tuple(residues.shape),
+                              dtype=torch.int32, device=dev)
+    lib = build.load(name)
+    query_args = (rows.data_ptr(), rows.numel()) if segs is None else \
+        (rows.data_ptr(), rows.numel(), segs.data_ptr(), n_segs)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{name}_launch")(
+            residues.data_ptr(), groups.data_ptr(), n, work.items.data_ptr(),
+            len(work), *query_args, submat.data_ptr(), int(open_gap),
+            int(extend_gap), scratch[0].data_ptr(), scratch[1].data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, name, err)
+    return out, True
+
+
 def sw_groups(residues, groups, query, submat, open_gap: int,
-              extend_gap: int, scratch=None):
+              extend_gap: int, scratch=None, work=None):
     """Scores of `query` against every lane of every group (see module)."""
     global launches
-    _check(residues, groups, query, submat, scratch)
+    _check(residues, groups, query, submat, scratch, work=work)
     if residues.device.type == "cpu":
         return sw_groups_ref(residues, groups, query, submat, open_gap,
                              extend_gap, scratch)
-    if residues.device.type != "cuda":
-        raise ValueError(f"sw_groups: no kernel for device "
-                         f"{residues.device}")
-    dev = residues.device
-    n = groups.shape[0]
-    out = torch.empty((n,) + GROUP_SHAPE, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    if scratch is None:
-        scratch = torch.empty((2,) + tuple(residues.shape),
-                              dtype=torch.int32, device=dev)
-    lib = build.load("sw_groups")
-    with torch.cuda.device(dev):
-        err = lib.sw_groups_launch(
-            residues.data_ptr(), groups.data_ptr(), n, query.data_ptr(),
-            query.numel(), submat.data_ptr(), int(open_gap),
-            int(extend_gap), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "sw_groups", err)
-    launches += 1
-    return out
+    out, launched = _launch("sw_groups", residues, groups, query, None,
+                            submat, open_gap, extend_gap, scratch, work)
+    launches += launched
+    return out[0]
 
 
 def sw_groups_packed(residues, groups, q_packed, segs, submat,
-                     open_gap: int, extend_gap: int, scratch=None):
+                     open_gap: int, extend_gap: int, scratch=None,
+                     work=None):
     """Scores of every segment of `q_packed` against every lane of every
     group (see module): int32[S, G, 8, 128]."""
     global launches_packed
-    _check(residues, groups, q_packed, submat, scratch, segs)
+    _check(residues, groups, q_packed, submat, scratch, segs, work)
     if residues.device.type == "cpu":
         return sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
                                     open_gap, extend_gap, scratch)
-    if residues.device.type != "cuda":
-        raise ValueError(f"sw_groups: no kernel for device "
-                         f"{residues.device}")
-    dev = residues.device
-    n, n_segs = groups.shape[0], segs.shape[0]
-    out = torch.empty((n_segs, n) + GROUP_SHAPE, dtype=torch.int32,
-                      device=dev)
-    if n == 0:
-        return out
-    if scratch is None:
-        scratch = torch.empty((2,) + tuple(residues.shape),
-                              dtype=torch.int32, device=dev)
-    lib = build.load("sw_groups_packed")
-    with torch.cuda.device(dev):
-        err = lib.sw_groups_packed_launch(
-            residues.data_ptr(), groups.data_ptr(), n, q_packed.data_ptr(),
-            q_packed.numel(), segs.data_ptr(), n_segs, submat.data_ptr(),
-            int(open_gap), int(extend_gap), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "sw_groups_packed", err)
-    launches_packed += 1
+    out, launched = _launch("sw_groups_packed", residues, groups,
+                            q_packed, segs, submat, open_gap, extend_gap,
+                            scratch, work)
+    launches_packed += launched
     return out
 
 
@@ -237,3 +371,108 @@ def sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
         out.append(sw_groups_ref(residues, groups, q_packed[r0:r0 + n],
                                  submat, open_gap, extend_gap))
     return torch.stack(out)
+
+
+def _strip_columns(cols, prof, h_in, f_in, oe, e, state):
+    """One strip over the columns of one tile.  cols: long[n, lanes]; prof:
+    int32[24, U] scores of the strip's rows; h_in, f_in: int32[n, lanes], H
+    of the row above the strip and F entering it; state: [hl, ee, hprev,
+    best] carried from the tile before, updated in place.  Returns (H of the
+    strip's last row, F leaving it), each int32[n, lanes].  The cell update
+    is the kernels': cur' = max(diag + s, 0, E), H = max(cur', F),
+    E' = max(E - e, cur' - oe), F down the rows as a running maximum."""
+    hl, ee, hprev, best = state
+    U = prof.shape[1]
+    bias = torch.arange(1, U + 1, dtype=torch.int32) * e
+    h_out, f_out = [], []
+    for j in range(cols.shape[0]):
+        diag = torch.cat([hprev[:, None], hl[:, :-1]], dim=1)
+        cp = torch.maximum((diag + prof[cols[j]]).clamp_min(0), ee)
+        c = cp - oe
+        # F[u] = max(F[u - 1] - e, c[u - 1]), F[0] = f_in: with
+        # a[u] = F[u] + u e a running maximum of {f_in, c[u - 1] + u e}
+        run = torch.cummax(torch.cat([f_in[j][:, None], c + bias], dim=1),
+                           dim=1).values
+        F = run[:, :-1] - (bias - e)
+        best = torch.maximum(best, cp.amax(dim=1))
+        hprev, hl = h_in[j], torch.maximum(cp, F)
+        ee = torch.maximum(ee - e, c)
+        h_out.append(hl[:, -1])
+        f_out.append(run[:, -1] - bias[-1])
+    state[:] = [hl, ee, hprev, best]
+    return torch.stack(h_out), torch.stack(f_out)
+
+
+def sw_groups_packed_tiled_ref(residues, groups, q_packed, segs, submat,
+                               open_gap: int, extend_gap: int, scratch=None,
+                               work=None, tile_cols: int = TILE_COLS):
+    """Plain PyTorch version of `sw_groups_packed` by the kernel's own
+    decomposition (see module); `scratch` is ignored.  CPU tensors."""
+    _check(residues, groups, q_packed, submat, scratch, segs, work)
+    if work is None:
+        work = work_table(groups)
+    U, T = STRIP_ROWS, int(tile_cols)
+    oe, e = int(open_gap) + int(extend_gap), int(extend_gap)
+    n_segs, n_groups = segs.shape[0], groups.shape[0]
+    lanes_g = GROUP_SHAPE[0] * GROUP_SHAPE[1]
+    slab = lanes_g // SLABS_PER_GROUP
+    out = torch.zeros((n_segs, n_groups, lanes_g), dtype=torch.int32)
+    # score rows of the matrix, with a row of zeros for a strip's padding
+    sm = torch.cat([submat.to(torch.int32),
+                    torch.zeros((1, ALPHA_SIZE), dtype=torch.int32)])
+    q = q_packed.to(torch.long)
+    table, seg_list = groups.tolist(), segs.tolist()
+    for g, part in work.items.tolist():
+        c0, L = table[g]
+        if part < ROWS_PER_GROUP:
+            lo, n_lanes, sets = part * SETS * slab, SETS * slab, 1
+        else:
+            lo, n_lanes, sets = (part - ROWS_PER_GROUP) * slab, slab, SETS
+        cols = residues[c0:c0 + L].reshape(L, lanes_g)[:, lo:lo + n_lanes]
+        cols = cols.to(torch.long)
+        zero = torch.zeros(n_lanes, dtype=torch.int32)
+        # the hand-over rows: the ring or the scratch, column by column
+        hrow = torch.zeros((L, n_lanes), dtype=torch.int32)
+        frow = torch.zeros_like(hrow)
+        k = 0                                    # strips so far, all segments
+        for s, (r0, n) in enumerate(seg_list):
+            r0 = min(max(r0, 0), q.numel())
+            n = min(max(n, 0), q.numel() - r0)
+            best = [zero] * sets                 # one maximum per set
+            n_strips = -(-n // U)
+            for t in range(n_strips):
+                rows = q[r0 + t * U: r0 + min(n, (t + 1) * U)]
+                rows = torch.cat([rows, torch.full((U - len(rows),),
+                                                   ALPHA_SIZE)])
+                prof = sm[rows].T.contiguous()               # [24, U]
+                state = [torch.zeros((n_lanes, U), dtype=torch.int32),
+                         torch.zeros((n_lanes, U), dtype=torch.int32),
+                         zero, best[k % sets]]
+                first, last = t == 0, t == n_strips - 1
+                for j0 in range(0, L, T):
+                    j1 = min(j0 + T, L)
+                    h_in = torch.zeros_like(hrow[j0:j1]) if first else \
+                        hrow[j0:j1].clone()
+                    f_in = torch.zeros_like(h_in) if first else \
+                        frow[j0:j1].clone()
+                    h_out, f_out = _strip_columns(cols[j0:j1], prof, h_in,
+                                                  f_in, oe, e, state)
+                    if not last:
+                        hrow[j0:j1], frow[j0:j1] = h_out, f_out
+                best[k % sets] = state[3]
+                k += 1
+            merged = torch.stack(best).amax(dim=0)
+            out[s, g, lo:lo + n_lanes] = torch.maximum(
+                out[s, g, lo:lo + n_lanes], merged)
+    return out.reshape((n_segs, n_groups) + GROUP_SHAPE)
+
+
+def sw_groups_tiled_ref(residues, groups, query, submat, open_gap: int,
+                        extend_gap: int, scratch=None, work=None,
+                        tile_cols: int = TILE_COLS):
+    """Plain PyTorch version of `sw_groups` by the kernel's own
+    decomposition: `sw_groups_packed_tiled_ref` with one segment."""
+    segs = torch.tensor([[0, query.numel()]], dtype=torch.int32)
+    return sw_groups_packed_tiled_ref(residues, groups, query, segs, submat,
+                                      open_gap, extend_gap, scratch, work,
+                                      tile_cols)[0]

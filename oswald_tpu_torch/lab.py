@@ -3,6 +3,8 @@ scripts/kernel_lab.py:
 
     python -m oswald_tpu_torch.lab [--variants base,fscan,ks,...] [--check]
                                    [--m M] [--seqs N] [--sass DIR]
+                                   [--long-from 256,1024,...]
+                                   [--blocks-per-sm 3,4,5]
 
 Builds the SwissProt-shaped synthetic database of chip_smoke.py (seed 0) and
 moves it to the card.  With --check every chosen variant of `sw_groups_lab`
@@ -15,7 +17,16 @@ twice the rows, every packed result held to `sw_groups` on the same rows
 (exact), and then every chosen lab variant at query length --m: one line
 each with milliseconds, Gcells/s, registers and spills, first with each
 column's loads where they are used, then with them one column ahead.  Each line carries
-the card's name and power limit.  With --sass, the kernels' SASS (cuobjdump)
+the card's name and power limit.  With --long-from, `sw_groups` (query length
+--m) and `sw_groups_packed` (8 x 65 and 2 x 512 rows) are timed over the
+whole database, and `sw_groups` over the longest bin and over one group of it
+alone, with groups dealt to the pipelined role from each given length on (a
+length beyond the longest bin pipelines nothing); each result is held to the
+default table's.  With --blocks-per-sm the same lines are
+timed with the engine kernels built for each given number of blocks an SM must
+hold (the register cap of their __launch_bounds__), at each --long-from value
+(default: the shipped one), with the registers and spills nvcc reports for
+each build.  With --sass, the kernels' SASS (cuobjdump)
 is written to DIR, one file per library, and the instruction count of each
 lab variant is printed.
 """
@@ -98,6 +109,83 @@ def run_variants(engine, variants, m, card="", say=print, load_ahead=False):
     return out
 
 
+# (kernel, blocks per SM) whose ptxas report run_long_from has printed
+_ptxas_said = set()
+
+
+def run_long_from(engine, values, m, card="", say=print, blocks=None):
+    """Time the engine kernels with the long role starting at each length
+    of `values` (work_table's long_from), built for `blocks` blocks per SM
+    (default: the shipped number); returns {value: sw_groups ms over the
+    whole database}."""
+    from oswald_tpu_torch.io.synth import realistic_residues
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.kernels.sw_lanes import (sw_groups,
+                                                   sw_groups_packed,
+                                                   work_table)
+    st, cfg, dev = engine.state, engine.config, engine.device
+    rng = np.random.default_rng(m)
+    q = torch.from_numpy(realistic_residues(rng, m).astype(np.int32)).to(dev)
+    qp = torch.from_numpy(realistic_residues(rng, 2 * ROWS)
+                          .astype(np.int32)).to(dev)
+    layouts = [(label, torch.tensor(segs, dtype=torch.int32, device=dev))
+               for label, segs in LAYOUTS if label in ("8 x 65", "2 x 512")]
+    table = st.groups.cpu().numpy()
+    longest = st.groups[torch.from_numpy(
+        table[:, 1] == table[:, 1].max()).to(dev)].contiguous()
+    tables = [("whole database", st.groups), ("longest bin", longest),
+              ("one group of it", longest[:1].contiguous())]
+    gaps = (cfg.open_gap, cfg.extend_gap)
+    # the shipped build's scores, which every other build must equal
+    want = {label: sw_groups(st.residues, t, q, engine.submat_dev, *gaps,
+                             engine.scratch) for label, t in tables}
+    want_p = {label: sw_groups_packed(st.residues, st.groups, qp, segs,
+                                      engine.submat_dev, *gaps,
+                                      engine.scratch, st.work)
+              for label, segs in layouts}
+    out = {}
+    shipped = build.BLOCKS_PER_SM
+    build.BLOCKS_PER_SM = blocks or shipped
+    tag = f"{build.BLOCKS_PER_SM} blocks per SM, long_from"
+    try:
+        for name in ("sw_groups", "sw_groups_packed"):
+            build.load(name)
+            key = (name, build.BLOCKS_PER_SM)
+            if key in _ptxas_said:
+                continue
+            _ptxas_said.add(key)
+            for line in (build.build_logs.get(key) or "").splitlines():
+                if "registers" in line or "spill" in line:
+                    say(f"{build.BLOCKS_PER_SM} blocks per SM, {name}: "
+                        f"ptxas: {line.strip()}")
+        for v in values:
+            for label, t in tables:
+                work = work_table(t, v)
+                got, ms = timed(lambda: sw_groups(
+                    st.residues, t, q, engine.submat_dev, *gaps,
+                    engine.scratch, work))
+                if not torch.equal(got, want[label]):
+                    raise AssertionError(f"{tag} {v}: sw_groups over the "
+                                         f"{label} differs")
+                if t is st.groups:
+                    out[v] = ms
+                say(f"{tag} {v}: sw_groups m={m}, {label} ({len(t)} groups, "
+                    f"{len(work)} items): {ms:.2f} ms [{card}]")
+            work = work_table(st.groups, v)
+            for label, segs in layouts:
+                got, ms = timed(lambda: sw_groups_packed(
+                    st.residues, st.groups, qp, segs, engine.submat_dev,
+                    *gaps, engine.scratch, work))
+                if not torch.equal(got, want_p[label]):
+                    raise AssertionError(f"{tag} {v}: sw_groups_packed "
+                                         f"{label} differs")
+                say(f"{tag} {v}: sw_groups_packed {label}, whole database: "
+                    f"{ms:.2f} ms [{card}]")
+    finally:
+        build.BLOCKS_PER_SM = shipped
+    return out
+
+
 def check_variants(engine, variants, say=print):
     """Every variant, with its loads in place and ahead, against sw_groups
     over the whole database, exact, at query lengths 512 and 65 under the
@@ -113,7 +201,7 @@ def check_variants(engine, variants, say=print):
                 np.random.default_rng(m), m).astype(np.int32)).to(
                     engine.device)
             want = sw_groups(st.residues, st.groups, q, engine.submat_dev,
-                             *gaps, engine.scratch)
+                             *gaps, engine.scratch, st.work)
             for v in variants:
                 diffs = [int((_lab_launch(engine, q, v, gaps, ahead) - want)
                              .abs().max()) for ahead in (False, True)]
@@ -149,6 +237,12 @@ def main(argv=None):
                     help="hold every variant to sw_groups and exit")
     ap.add_argument("--m", type=int, default=ROWS,
                     help="query length of the variant timings")
+    ap.add_argument("--long-from", default=None,
+                    help="comma list of lengths from which groups are "
+                         "pipelined; times the engine kernels for each")
+    ap.add_argument("--blocks-per-sm", default=None,
+                    help="comma list of blocks an SM must hold; times the "
+                         "engine kernels built for each")
     args = ap.parse_args(argv)
     from oswald_tpu_torch.kernels.sw_lab import VARIANTS
     variants = args.variants.split(",") if args.variants else list(VARIANTS)
@@ -178,11 +272,17 @@ def main(argv=None):
     cells = st.residues.shape[0] * 1024
     if args.check:
         return 1 if check_variants(engine, variants) else 0
+    if args.long_from or args.blocks_per_sm:
+        from oswald_tpu_torch.kernels.sw_lanes import LONG_FROM
+        values = [int(v) for v in (args.long_from or str(LONG_FROM)).split(",")]
+        for b in (args.blocks_per_sm or "0").split(","):
+            run_long_from(engine, values, args.m, card, blocks=int(b))
+        return 0
 
     def single(r0, n):
         return sw_groups(st.residues, st.groups, qp[r0:r0 + n].contiguous(),
                          engine.submat_dev, cfg.open_gap, cfg.extend_gap,
-                         engine.scratch)
+                         engine.scratch, st.work)
 
     def report(label, rows, ms):
         print(f"{label}: {ms:.2f} ms, {ms / rows:.4f} ms per row, "
@@ -196,7 +296,7 @@ def main(argv=None):
         seg_t = torch.tensor(segs, dtype=torch.int32, device="cuda")
         got, ms = timed(lambda: sw_groups_packed(
             st.residues, st.groups, qp, seg_t, engine.submat_dev,
-            cfg.open_gap, cfg.extend_gap, engine.scratch))
+            cfg.open_gap, cfg.extend_gap, engine.scratch, st.work))
         for s, (r0, n) in enumerate(segs):
             if not torch.equal(got[s], single(r0, n)):
                 raise AssertionError(f"{label}: segment {s} differs from "

@@ -21,9 +21,12 @@ from oswald_tpu_torch.io import pack_sequences
 from oswald_tpu_torch.kernels import sw_lab, sw_lanes
 from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, sw_groups_lab,
                                              sw_groups_lab_ref)
-from oswald_tpu_torch.kernels.sw_lanes import (sw_groups, sw_groups_packed,
+from oswald_tpu_torch.kernels.sw_lanes import (LONG_FROM, SETS, STRIP_ROWS,
+                                               TILE_COLS, sw_groups,
+                                               sw_groups_packed,
                                                sw_groups_packed_ref,
-                                               sw_groups_ref)
+                                               sw_groups_ref, work_table,
+                                               WorkTable)
 from oswald_tpu_torch.submat import get_submat
 
 pytestmark = pytest.mark.gpu
@@ -61,8 +64,10 @@ def _inputs(rng, shapes, m, matrix, device):
 
 @pytest.mark.parametrize("m,matrix,og,eg", [
     (1, "blosum62", 10, 2), (9, "pam30", 7, 1), (65, "blosum62", 0, 0),
-    (600, "blosum62", 10, 2),
-    (13000, "pam30", 7, 1),      # query beyond 48 KB of shared memory
+    (513, "blosum62", 11, 1), (600, "blosum62", 10, 2),
+    # queries that would not fit shared memory: the rows stay in global
+    (8192, "blosum62", 10, 2), (9000, "blosum62", 10, 2),
+    (13000, "pam30", 7, 1), (16384, "pam30", 7, 1),
 ])
 def test_kernel_matches_plain_version(cuda, m, matrix, og, eg):
     rng = np.random.default_rng(m)
@@ -88,15 +93,136 @@ def test_kernel_with_engine_scratch_and_subtable(cuda):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+def _misaligned_scratch(res, device):
+    """A scratch of the right shape and type whose rows start 4 bytes past
+    a 16-byte boundary: the sweep's 16-byte copies cannot address it."""
+    flat = torch.empty(2 * res.numel() + 1, dtype=torch.int32, device=device)
+    return flat[1:].view((2,) + tuple(res.shape))
+
+
 def test_refused_launch_raises(cuda):
-    """A query too long for shared memory is refused by the runtime; the
-    wrapper raises instead of returning unwritten scores."""
+    """A scratch the kernel's 16-byte copies cannot address is refused at
+    the launch; the wrapper raises instead of returning unwritten scores."""
     rng = np.random.default_rng(2)
-    args = _inputs(rng, [(1, 32)], 60000, "blosum62", cuda)
+    args = _inputs(rng, [(1, 32)], 60, "blosum62", cuda)
     before = sw_lanes.launches
     with pytest.raises(RuntimeError, match="sw_groups kernel launch failed"):
-        sw_groups(*args, 10, 2)
+        sw_groups(*args, 10, 2, _misaligned_scratch(args[0], cuda))
     assert sw_lanes.launches == before
+    # a query of 60,000 rows is no reason to refuse: the rows are read
+    # from global memory strip by strip
+    args = _inputs(rng, [(1, 32)], 60000, "blosum62", cuda)
+    got = sw_groups(*args, 10, 2)
+    assert sw_lanes.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  sw_groups_ref(*args, 10, 2).cpu().numpy())
+
+
+# (G, L) tables that mix both roles: rows of short groups, pipelined slabs
+# of long ones; lengths that are no multiple of the tile, shorter than a
+# tile, and shorter than the pipeline's fill
+MIXED_ROLES = [(2, 32), (1, LONG_FROM + 37), (1, 96), (1, LONG_FROM)]
+ODD_LENGTHS = [(1, 5), (2, 32), (1, TILE_COLS * SETS - 3), (1, 224), (1, 97)]
+
+
+@pytest.mark.parametrize("shapes,long_from,m,matrix,og,eg", [
+    (MIXED_ROLES, LONG_FROM, 65, "blosum62", 10, 2),
+    # a query of many rounds of the pipeline on a long group
+    (MIXED_ROLES, LONG_FROM, 4 * STRIP_ROWS * SETS + 9, "pam30", 7, 1),
+    (MIXED_ROLES, LONG_FROM, 1, "blosum62", 0, 0),
+    # every group pipelined, whatever its length
+    (ODD_LENGTHS, 1, 9, "blosum62", 10, 2),
+    (ODD_LENGTHS, 1, 6 * STRIP_ROWS * SETS, "blosum62", 11, 1),
+    (ODD_LENGTHS, 40, STRIP_ROWS * SETS + 1, "pam30", 7, 1),
+    # no group pipelined
+    (MIXED_ROLES, 1 << 30, 100, "blosum62", 10, 2),
+])
+def test_kernel_roles_match_plain_version(cuda, shapes, long_from, m, matrix,
+                                          og, eg):
+    rng = np.random.default_rng(m + len(shapes))
+    args = _inputs(rng, shapes, m, matrix, cuda)
+    work = work_table(args[1], long_from)
+    got = sw_groups(*args, og, eg, work=work)
+    torch.cuda.synchronize()
+    want = sw_groups_ref(*args, og, eg)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    # the same launch again, with a caller's scratch full of old values
+    scratch = torch.full((2,) + tuple(args[0].shape), 12345,
+                         dtype=torch.int32, device=cuda)
+    again = sw_groups(*args, og, eg, scratch, work)
+    np.testing.assert_array_equal(again.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("long_from", [LONG_FROM, None, 1 << 30])
+def test_packed_kernel_roles_match_plain_version(cuda, long_from):
+    """Segments of one row, less than a strip, several strips and many
+    rounds of the pipeline, on both roles, with a caller's scratch and a
+    sub-table of the groups."""
+    rng = np.random.default_rng(31)
+    res, table, _, sm = _inputs(rng, MIXED_ROLES + [(1, 61)], 1, "blosum62",
+                                cuda)
+    qlens = [1, 7, 16, 300, 33, 2 * STRIP_ROWS * SETS]
+    q = torch.from_numpy(_protein(rng, sum(qlens)).astype(np.int32)).to(cuda)
+    starts = np.concatenate([[0], np.cumsum(qlens)[:-1]])
+    segs = torch.tensor(list(zip(starts.tolist(), qlens)), dtype=torch.int32,
+                        device=cuda)
+    scratch = torch.full((2,) + tuple(res.shape), -7, dtype=torch.int32,
+                         device=cuda)
+    for sub in (table, table[1:4].contiguous(), table[2:3].contiguous()):
+        work = work_table(sub, long_from)
+        got = sw_groups_packed(res, sub, q, segs, sm, 10, 2, scratch, work)
+        torch.cuda.synchronize()
+        want = sw_groups_packed_ref(res, sub, q, segs, sm, 10, 2)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        if long_from is None:
+            # the wrapper's own table is the default one: a table this
+            # small is pipelined whole
+            own = sw_groups_packed(res, sub, q, segs, sm, 10, 2, scratch)
+            np.testing.assert_array_equal(own.cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+def test_pipelined_hand_over_is_stable(cuda):
+    """The waits between the warps of a pipelined item are the one thing no
+    CPU test reaches, and a fault in them shows in one lane, sometimes: the
+    same launches, with segments that start inside a round and groups
+    longer and shorter than the pipeline's fill, give the plain version's
+    scores thirty times in a row."""
+    rng = np.random.default_rng(33)
+    res, table, q, sm = _inputs(rng, [(3, 40), (2, 330), (3, 9)], 700,
+                                "blosum62", cuda)
+    qlens = [1, 17, 3, 200, 16, 16, 31, 2, 300, 5, 64, 45]
+    starts = np.concatenate([[0], np.cumsum(qlens)[:-1]])
+    segs = torch.tensor(list(zip(starts.tolist(), qlens)), dtype=torch.int32,
+                        device=cuda)
+    work = work_table(table, 1)
+    want = sw_groups_ref(res, table, q, sm, 10, 2)
+    want_p = sw_groups_packed_ref(res, table, q, segs, sm, 10, 2)
+    scratch = torch.empty((2,) + tuple(res.shape), dtype=torch.int32,
+                          device=cuda)
+    for _ in range(30):
+        got = sw_groups(res, table, q, sm, 10, 2, scratch, work)
+        got_p = sw_groups_packed(res, table, q, segs, sm, 10, 2, scratch,
+                                 work)
+        assert torch.equal(got, want)
+        assert torch.equal(got_p, want_p)
+
+
+def test_bad_work_table_rejected(cuda):
+    rng = np.random.default_rng(32)
+    args = _inputs(rng, [(1, 32)], 5, "blosum62", cuda)
+    work = work_table(args[1])
+    assert work.items.device == args[1].device
+    with pytest.raises(ValueError, match="must be the WorkTable"):
+        sw_groups(*args, 10, 2, work=work.items)
+    with pytest.raises(ValueError, match="another group table"):
+        sw_groups(*args, 10, 2, work=work_table(args[1].cpu()))
+    with pytest.raises(ValueError, match="another group table"):
+        sw_groups(*args, 10, 2, work=work_table(args[1].clone()))
+    with pytest.raises(ValueError, match=r"int32\[N, 2\] on cuda"):
+        WorkTable(work.items.cpu(), args[1])
+    with pytest.raises(ValueError, match="no launch order of these 1 groups"):
+        WorkTable(work.items[:-1].contiguous(), args[1])
 
 
 def test_mixed_devices_rejected(cuda):
@@ -110,6 +236,7 @@ def test_mixed_devices_rejected(cuda):
 def test_cuda_engine_matches_cpu_engine(cuda):
     rng = np.random.default_rng(4)
     lengths = rng.integers(1, 400, size=2600)
+    lengths[::700] = LONG_FROM + 100         # a bin of pipelined groups
     seqs = [_protein(rng, int(n)) for n in lengths]
     db = pack_sequences(np.concatenate(seqs), lengths,
                         [f"s{i}" for i in range(len(seqs))], bin_cost=1)
@@ -204,18 +331,24 @@ def test_packed_kernel_equals_single_query_kernel(cuda):
 
 
 def test_refused_packed_launch_raises(cuda):
-    """Packed rows beyond the card's shared memory are refused; the wrapper
-    raises and counts no launch."""
+    """A scratch the kernel's 16-byte copies cannot address is refused at
+    the launch; the wrapper raises and counts no launch.  60,000 packed
+    rows are no reason to refuse."""
     rng = np.random.default_rng(12)
     res, table, _, sm = _inputs(rng, [(1, 32)], 1, "blosum62", cuda)
-    qp = torch.zeros(60000, dtype=torch.int32, device=cuda)
+    qp = torch.from_numpy(_protein(rng, 60000).astype(np.int32)).to(cuda)
     segs = torch.tensor([[0, 30000], [30000, 30000]], dtype=torch.int32,
                         device=cuda)
     before = sw_lanes.launches_packed
     with pytest.raises(RuntimeError,
                        match="sw_groups_packed kernel launch failed"):
-        sw_groups_packed(res, table, qp, segs, sm, 10, 2)
+        sw_groups_packed(res, table, qp, segs, sm, 10, 2,
+                         _misaligned_scratch(res, cuda))
     assert sw_lanes.launches_packed == before
+    got = sw_groups_packed(res, table, qp, segs, sm, 10, 2)
+    assert sw_lanes.launches_packed == before + 1
+    want = sw_groups_packed_ref(res, table, qp, segs, sm, 10, 2)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 def test_packed_mixed_devices_rejected(cuda):
@@ -231,6 +364,7 @@ def test_cuda_search_many_matches_cpu(cuda):
     search_stream: the CUDA engine's results are the CPU engine's."""
     rng = np.random.default_rng(14)
     lengths = rng.integers(1, 400, size=2600)
+    lengths[::900] = LONG_FROM + 50          # a bin of pipelined groups
     seqs = [_protein(rng, int(n)) for n in lengths]
     db = pack_sequences(np.concatenate(seqs), lengths,
                         [f"s{i}" for i in range(len(seqs))], bin_cost=1)
@@ -327,6 +461,7 @@ def test_cuda_host_stream_matches_resident(cuda, overlap):
     engine's, several times in a row (buffers are reused)."""
     rng = np.random.default_rng(23)
     lengths = rng.integers(1, 300, size=19000)
+    lengths[::6000] = LONG_FROM + 10         # a bin of pipelined groups
     seqs = [_protein(rng, int(n)) for n in lengths]
     db = pack_sequences(np.concatenate(seqs), lengths,
                         [f"s{i}" for i in range(len(seqs))])
