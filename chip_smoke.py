@@ -37,15 +37,23 @@ one nvcc per source, all started together), then:
    plan's, the planted homolog must rank first for its query, and one
    query per batch is rescored on the CPU.  Seconds and GCUPS of each batch
    stand beside those of the same queries searched one by one;
-7. lab kernel against plain version: every variant of sw_groups_lab on one
-   group of every bin at query length 512, held to the sw_groups_ref scores
-   of phase 3 (tolerance: exact), each variant's own plain version
-   (sw_groups_lab_ref) on the shortest bin, and every variant equal to
-   sw_groups over the whole database (lengths 512 and 65, the engine's gaps
-   and 11/1); then oswald_tpu_torch.lab.run_variants over the whole
-   database, with each column's loads where they are used and one column
-   ahead: one line per variant with milliseconds, Gcells/s, registers and
-   spills;
+7. lab kernel against plain version: every built kernel of sw_groups_lab
+   (each variant at strip height U = 16 with a column's shared-memory reads
+   in place and one column ahead; base and dpx ahead at U = 8 and 32) on
+   one group of every bin at query length 512, pipelined (the default
+   table) and as rows, held to the sw_groups_ref scores of phase 3
+   (tolerance: exact); each variant's tiled plain version
+   (sw_groups_lab_tiled_ref) at each built U on the shortest bin; every
+   built kernel equal to sw_groups over the whole database (lengths 512 and
+   65, the engine's gaps and 11/1); then oswald_tpu_torch.lab.run_variants
+   over the whole database at m = 512, at U = 16 in place and ahead and at
+   U = 8 and 32 ahead: one line per kernel with milliseconds, Gcells/s, the
+   share of the bound, registers and spills.  Last, base ahead at U = 16,
+   which is sw_groups' own code, and sw_groups are timed in turn over the
+   whole database on the 512-residue query (A B B A, four times), so that
+   a drift of the card's clock between phases cannot pass for a difference
+   of code.  It fails if a lab time is under its bound, and if the median
+   times of those two are not within 3% of each other;
 8. host_stream main path: a second engine with profile_mode="host_stream"
    on the same database and card.  Its score_all must equal the resident
    engine's on every valid slot (lengths 512 and 65, three in a row each),
@@ -70,9 +78,10 @@ Every phase raises on failure (non-zero exit, no result line).  The
 second-to-last line is a JSON object with, for each kernel, its launches on
 the main path, its error against the plain version, its time, the plain
 version's and the least time the card could take for the same work (the
-larger of the bytes moved over the memory rate and the integer instructions
-the recurrence needs over the INT32 instruction rate); a kernel timed under
-that bound fails the run, since it would prove the count wrong.  The last
+larger of the bytes moved over the memory rate and the fused instructions
+the recurrence needs over the rate an SM issues instructions at); a kernel
+timed under that bound fails the run, since it would prove the count wrong.
+The probe prints the card's maximum SM clock, which that rate assumes.  The last
 line is {"ok": true, "device": {...}}.
 Times are CUDA-event times for kernels and host wall times (ended by a
 synchronising readback) for searches.
@@ -103,26 +112,10 @@ SOURCES = {"sw_groups": "oswald_tpu_torch/kernels/csrc/sw_groups.cu",
            "sw_groups_lab": "oswald_tpu_torch/kernels/csrc/sw_groups_lab.cu"}
 REPLACES = "oswald_tpu/kernels/sw_lanes.py:309"
 REPLACES_LAB = "scripts/kernel_lab.py:176"
-# H100 SXM data sheet: 3.35 TB/s of HBM; 67 TFLOP/s of float32 is 128 lanes
-# per SM doing one FMA (2 FLOP) per clock, and INT32 has half the lanes: 64
-# lanes x 132 SMs x 1.98 GHz = 16.75e12 integer instructions a second
-HBM_BYTES_PER_S = 3.35e12
-INT32_INSTR_PER_S = 67e12 / 2 / 2
-# The fewest INT32 instructions of this card for one cell of the recurrence.
-# Its ten additions and maxima (diag + s, max 0, max E, cur' - oe, max into
-# best, max(cur', F), E - e, max, F - e, max) fuse on Hopper: an add with a
-# max and a floor of 0 is one instruction (VIADDMNMX with relu), an add with
-# a max another, and one three-way max (VIMNMX3) serves two cells:
-#   cur' = max(diag + s, E, 0)   1      H  = max(cur', F)           1
-#   c    = cur' - oe             1      E' = max(E - e, c)          1
-#   best = max(best, cur', cur'_next)   0.5   F' = max(F - e, c)    1
-# No rewrite known to this port does it in fewer (biasing E and F by oe
-# trades the subtraction for a second floor).  Charging all ten at one
-# lane-clock each gave a "bound" of 63.36 ms at m = 512 that both engine
-# kernels beat (39.31 and, per 998 rows, 81.44 ms against 123.51), which
-# proved that count wrong, not the kernels good.  16-bit lanes would halve
-# it again, but the function is int32 in and out.
-INSTR_PER_CELL = 5.5
+# base ahead at U = 16 is sw_groups' code: timed in turn, SAME_CODE_ROUNDS
+# times A B B A, their median times agree within SAME_CODE_RTOL
+SAME_CODE_ROUNDS = 4
+SAME_CODE_RTOL = 0.03
 
 
 def say(msg=""):
@@ -144,12 +137,11 @@ def timed(fn, reps):
 
 
 def bound(cells, n_bytes):
-    """(least milliseconds the card could take, what bounds it) for `cells`
-    cell updates over inputs and outputs of `n_bytes` bytes."""
-    by_ops = cells * INSTR_PER_CELL / INT32_INSTR_PER_S * 1e3
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (by_ops, "operations") if by_ops >= by_bytes else \
-        (by_bytes, "bytes")
+    """(least milliseconds the card could take, what bounds it): the
+    larger of the bytes over the memory rate and 5.5 instructions a cell
+    over the issue rate (oswald_tpu_torch.lab.bound has the derivation)."""
+    from oswald_tpu_torch.lab import bound as card_bound
+    return card_bound(cells, n_bytes)
 
 
 def hold_to_bound(what, ms, b_ms):
@@ -179,6 +171,10 @@ def probe():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    say(f"maximum SM clock {clock.splitlines()[0]}")
     t0 = time.perf_counter()
     build.build_all(sorted(SOURCES))
     say(f"kernels built in {time.perf_counter() - t0:.2f} s")
@@ -531,10 +527,12 @@ def whole_and_longest(engine, launch):
 
 def single_tail(engine, queries, card):
     """sw_groups over the whole database beside its bound, over the longest
-    bin alone and over one group of it alone (the latency case)."""
+    bin alone and over one group of it alone (the latency case).  Returns
+    {m: milliseconds over the whole database}."""
     from oswald_tpu_torch.kernels.sw_lanes import sw_groups
     from oswald_tpu_torch.utils.metrics import gcups
     st, cfg = engine.state, engine.config
+    out = {}
     for m, q in queries:
         qt = torch.as_tensor(q, dtype=torch.int32, device=engine.device)
         all_ms, parts = whole_and_longest(
@@ -549,6 +547,8 @@ def single_tail(engine, queries, card):
             f"the time); {parts} [{card}]")
         hold_to_bound(f"sw_groups over the whole database, m={m}", all_ms,
                       b_ms)
+        out[m] = all_ms
+    return out
 
 
 def packed_tail(engine, layout, card):
@@ -570,58 +570,136 @@ def packed_tail(engine, layout, card):
     hold_to_bound("sw_groups_packed over the whole database", all_ms, b_ms)
 
 
-def lab_vs_plain(engine, q_long, wants, card):
-    """Phase 7.  Returns (max_abs_err over all variants, {variant: ms
-    summed over one group of every bin}, {variant: ms over the whole
-    database} with each column's loads in place and the same with them a
-    column ahead, launches of run_variants)."""
+def same_code(engine, q_long, card, engine_ms):
+    """Lab base ahead at U = 16 and sw_groups, the same code, over the whole
+    database on the same query, timed in turn: A B B A, SAME_CODE_ROUNDS
+    times, each time the mean of TIMED_RUNS launches after a warm-up.  The
+    two medians must agree within SAME_CODE_RTOL; phase 4's sw_groups time
+    (engine_ms), taken minutes earlier, is printed beside them.  Returns
+    {kernel: median milliseconds}."""
+    from oswald_tpu_torch.kernels.sw_lab import label, sw_groups_lab
+    from oswald_tpu_torch.kernels.sw_lanes import STRIP_ROWS, sw_groups
+    st, cfg = engine.state, engine.config
+    qt = torch.as_tensor(q_long, dtype=torch.int32, device=engine.device)
+    args = (st.residues, st.groups, qt, engine.submat_dev, cfg.open_gap,
+            cfg.extend_gap)
+    lab_name = label("base", STRIP_ROWS, True)
+    kernels = {
+        "sw_groups": lambda: sw_groups(*args, engine.scratch, st.work),
+        lab_name: lambda: sw_groups_lab(*args, "base", engine.scratch, True,
+                                        st.work, STRIP_ROWS)}
+    times = {k: [] for k in kernels}
+    for r in range(2 * SAME_CODE_ROUNDS):
+        for k in sorted(kernels, reverse=r % 2 == 1):
+            _, ms = timed(kernels[k], TIMED_RUNS)
+            times[k].append(ms)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    lab_ms, eng_ms = med[lab_name], med["sw_groups"]
+    say(f"lab {lab_name} and sw_groups over the whole database, m={Q_LONG}, "
+        f"timed in turn ({2 * SAME_CODE_ROUNDS} x {TIMED_RUNS} launches "
+        f"each): medians {lab_ms:.2f} and {eng_ms:.2f} ms "
+        f"({100 * (lab_ms / eng_ms - 1):+.2f}%; lab "
+        f"{min(times[lab_name]):.2f}-{max(times[lab_name]):.2f}, sw_groups "
+        f"{min(times['sw_groups']):.2f}-{max(times['sw_groups']):.2f}); "
+        f"phase 4's sw_groups {engine_ms:.2f} ms [{card}]")
+    if abs(lab_ms / eng_ms - 1) > SAME_CODE_RTOL:
+        raise AssertionError(f"base ahead at U = {STRIP_ROWS} is sw_groups' "
+                             f"code, but takes {lab_ms:.2f} ms against "
+                             f"{eng_ms:.2f} ms, timed in turn")
+    return med
+
+
+def lab_vs_plain(engine, q_long, wants, card, engine_ms):
+    """Phase 7; engine_ms is phase 4's sw_groups time over the whole
+    database at Q_LONG.  Returns (max_abs_err over every built kernel,
+    bound of one group of every bin, {label: ms summed over one group of
+    every bin}, {variant: ms over the whole database} at U = 16 with each
+    column's reads in place, the same with them ahead, {label: ms} at the
+    other strip heights, launches of run_variants)."""
     from oswald_tpu_torch import lab
     from oswald_tpu_torch.kernels import build, sw_lab
-    from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, sw_groups_lab,
-                                                 sw_groups_lab_ref)
+    from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, label,
+                                                 sw_groups_lab,
+                                                 sw_groups_lab_tiled_ref)
+    from oswald_tpu_torch.kernels.sw_lanes import STRIP_ROWS, work_table
     st, cfg, dev = engine.state, engine.config, engine.device
     table, firsts = first_groups(engine)
     qt = torch.as_tensor(q_long, dtype=torch.int32, device=dev)
+    gaps = (cfg.open_gap, cfg.extend_gap)
     regs = sw_lab.ptxas_report(build.build_logs.get("sw_groups_lab"))
+    lanes = 8 * 128
+    cols = sum(int(table[gi, 1]) for gi in firsts)
+    bins_b_ms, _ = bound(
+        cols * lanes * Q_LONG,
+        cols * lanes + len(firsts) * (8 + 4 * Q_LONG + 4 * 24 * 24 +
+                                      4 * lanes))
+    built = lab._built(list(VARIANTS))
     worst, bins_ms = 0, {}
-    for v in VARIANTS:
-        total = 0.0
+    for v, u, ahead in built:
+        name, total = label(v, u, ahead), 0.0
         for gi in firsts:
-            grp = st.groups[gi:gi + 1].contiguous()
-            got, ms = timed(lambda: sw_groups_lab(
-                st.residues, grp, qt, engine.submat_dev, cfg.open_gap,
-                cfg.extend_gap, v, engine.scratch), TIMED_RUNS)
-            err = int((got - wants[gi]).abs().max())
+            grp, work, row_work = sub_table(engine, gi)
+            args = (st.residues, grp, qt, engine.submat_dev, *gaps, v,
+                    engine.scratch, ahead)
+            got, ms = timed(lambda: sw_groups_lab(*args, work, u),
+                            TIMED_RUNS)
+            as_rows = sw_groups_lab(*args, row_work, u)
+            err = max(int((got - wants[gi]).abs().max()),
+                      int((as_rows - wants[gi]).abs().max()))
             worst = max(worst, err)
             if err:
                 raise AssertionError(
-                    f"sw_groups_lab {v} differs from sw_groups_ref by {err} "
-                    f"on bin {table[gi, 1]}, m={Q_LONG}")
+                    f"sw_groups_lab {name} differs from sw_groups_ref by "
+                    f"{err} on bin {table[gi, 1]}, m={Q_LONG}")
             total += ms
-        bins_ms[v] = total
-        say(f"lab {v}: one group of every bin, m={Q_LONG}: {total:.3f} ms, "
-            f"equal to the plain version; {regs.get(v, 'built before')}")
-    # each variant's own plain version, on the shortest bin
+        bins_ms[name] = total
+        hold_to_bound(f"sw_groups_lab {name}, one group of every bin", total,
+                      bins_b_ms)
+        say(f"lab {name}: one group of every bin, m={Q_LONG}: {total:.3f} ms "
+            f"(bound {bins_b_ms:.3f}), pipelined and as rows equal to the "
+            f"plain version; {regs.get(name, 'built before')}")
+    # each variant's tiled plain version at each built strip height, on the
+    # shortest bin's first group, dealt out as rows
     gi = firsts[0]
-    grp = st.groups[gi:gi + 1].contiguous()
-    for v in VARIANTS:
-        want, p_ms = wall_ms(lambda: sw_groups_lab_ref(
-            st.residues, grp, qt, engine.submat_dev, cfg.open_gap,
-            cfg.extend_gap, v))
-        if not torch.equal(want, wants[gi]):
-            raise AssertionError(f"sw_groups_lab_ref {v} differs from "
-                                 f"sw_groups_ref on bin {table[gi, 1]}")
-        say(f"lab {v}: sw_groups_lab_ref on bin {int(table[gi, 1])}, "
+    c0, L = (int(x) for x in table[gi])
+    host = (st.residues[c0:c0 + L].cpu(),
+            torch.tensor([[0, L]], dtype=torch.int32),
+            torch.as_tensor(q_long, dtype=torch.int32),
+            torch.as_tensor(engine.submat, dtype=torch.int32))
+    rows = work_table(host[1], 1 << 30)
+    for v, u in sorted({(v, u) for v, u, _ in built}):
+        want, p_ms = wall_ms(lambda: sw_groups_lab_tiled_ref(
+            *host, *gaps, v, work=rows, strip_rows=u))
+        if not torch.equal(want, wants[gi].cpu()):
+            raise AssertionError(f"sw_groups_lab_tiled_ref {label(v, u)} "
+                                 f"differs from sw_groups_ref on bin {L}")
+        say(f"lab {label(v, u)}: sw_groups_lab_tiled_ref on bin {L}, "
             f"m={Q_LONG}: {p_ms:.1f} ms, equal")
     bad = lab.check_variants(engine, list(VARIANTS), say)
     if bad:
-        raise AssertionError(f"{bad} lab variant cases differ from "
+        raise AssertionError(f"{bad} lab kernel cases differ from "
                              f"sw_groups over the whole database")
     sw_lab.launches_lab = 0
     whole_ms = lab.run_variants(engine, list(VARIANTS), Q_LONG, card, say)
     ahead_ms = lab.run_variants(engine, list(VARIANTS), Q_LONG, card, say,
                                 load_ahead=True)
-    return worst, bins_ms, whole_ms, ahead_ms, sw_lab.launches_lab
+    rows_ms = {}
+    for u in sorted({u for _, u, _ in built} - {STRIP_ROWS}):
+        for v, ms in lab.run_variants(engine, list(VARIANTS), Q_LONG, card,
+                                      say, True, u).items():
+            rows_ms[label(v, u)] = ms
+    launches = sw_lab.launches_lab
+    whole_b_ms, _ = bound(st.residues.shape[0] * lanes * Q_LONG,
+                          st.residues.numel())
+    timed_all = {**{label(v, STRIP_ROWS): ms for v, ms in whole_ms.items()},
+                 **{label(v, STRIP_ROWS, True): ms
+                    for v, ms in ahead_ms.items()},
+                 **{k + sw_lab.AHEAD: ms for k, ms in rows_ms.items()}}
+    for name, ms in timed_all.items():
+        hold_to_bound(f"sw_groups_lab {name} over the whole database", ms,
+                      whole_b_ms)
+    same_code(engine, q_long, card, engine_ms)
+    return worst, bins_b_ms, bins_ms, whole_ms, ahead_ms, rows_ms, launches
 
 
 def host_stream_breakdown(engine, hs, queries, card):
@@ -806,7 +884,7 @@ def run(device, n_seqs, card, seed=SEED):
     for m, (res, sec) in results.items():
         say(f"search m={m}: {sec:.4f} s, "
             f"{gcups(m, db.n_residues, sec):.1f} GCUPS [{card}]")
-    single_tail(engine, queries, card)
+    engine_ms = single_tail(engine, queries, card)
 
     # the batch queries come from their own generator, so the database
     # stays the one the seed gives
@@ -829,9 +907,18 @@ def run(device, n_seqs, card, seed=SEED):
     resident_peak = max(resident_peak,
                         torch.cuda.max_memory_allocated() - mem_base)
     packed_tail(engine, layouts["mixed"], card)
-    lerr, lab_bins_ms, lab_whole_ms, lab_ahead_ms, lab_launches = \
-        lab_vs_plain(engine, q_long, wants, card)
-    fastest = min(lab_whole_ms, key=lab_whole_ms.get)
+    lerr, lab_b_ms, lab_bins_ms, lab_whole_ms, lab_ahead_ms, lab_rows_ms, \
+        lab_launches = lab_vs_plain(engine, q_long, wants, card,
+                                    engine_ms[Q_LONG])
+    from oswald_tpu_torch.kernels.sw_lab import label
+    from oswald_tpu_torch.kernels.sw_lanes import STRIP_ROWS
+    lab_all = {**{label(v): ms for v, ms in lab_whole_ms.items()},
+               **{label(v, STRIP_ROWS, True): ms
+                  for v, ms in lab_ahead_ms.items()},
+               **{k + "+ahead": ms for k, ms in lab_rows_ms.items()}}
+    fastest = min(lab_all, key=lab_all.get)
+    say(f"lab: fastest over the whole database, m={Q_LONG}: {fastest}, "
+        f"{lab_all[fastest]:.2f} ms [{card}]")
     hs_launches = host_stream_path(db, engine, queries, mixed, card,
                                    resident_peak)
     common = {"route": "cuda", "library_ms": None}
@@ -849,20 +936,22 @@ def run(device, n_seqs, card, seed=SEED):
          "max_abs_err": perr, "ms": pk_ms, "plain_ms": pp_ms,
          "bound_ms": pb_ms, "bound_by": pb_by, **common},
         # the lab kernel does sw_groups' work on sw_groups' inputs: phase
-        # 3's plain time and bound stand for it.  `variant` is the fastest
-        # over the whole database; `ms` is its time summed over one group
-        # of every bin, as for sw_groups; `variants` holds every variant's
-        # time over the whole database and `variants_bins_ms` every
-        # variant's time summed over one group of every bin (all with each
-        # column's loads where they are used); `variants_load_ahead` is
-        # `variants` with the loads one column ahead
+        # 3's plain time stands for it.  `variant` is the fastest kernel
+        # over the whole database (label: variant@U, +ahead for the reads
+        # one column ahead); `ms` is its time summed over one group of every
+        # bin, as for sw_groups, beside the bound of that work;
+        # `variants_bins_ms` holds that time for every built kernel;
+        # `variants` every variant's time over the whole database at U = 16
+        # with the reads in place, `variants_load_ahead` with them ahead,
+        # `variants_rows` the times ahead at the other strip heights
         {"name": "sw_groups_lab", "source": SOURCES["sw_groups_lab"],
          "replaces": REPLACES_LAB, "launches": lab_launches,
          "max_abs_err": lerr, "variant": fastest,
-         "ms": lab_bins_ms[fastest], "plain_ms": p_ms, "bound_ms": b_ms,
+         "ms": lab_bins_ms[fastest], "plain_ms": p_ms, "bound_ms": lab_b_ms,
          "bound_by": b_by, "variants": lab_whole_ms,
          "variants_bins_ms": lab_bins_ms,
-         "variants_load_ahead": lab_ahead_ms, **common}]}
+         "variants_load_ahead": lab_ahead_ms,
+         "variants_rows": lab_rows_ms, **common}]}
 
 
 def main():

@@ -39,8 +39,8 @@ SIGNATURES = {
         "sw_groups_packed_error_string": ([_I], ctypes.c_char_p),
     },
     "sw_groups_lab": {
-        "sw_groups_lab_launch": ([_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P,
-                                  _P, _I, _I], _I),
+        "sw_groups_lab_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P,
+                                  _P, _P, _P, _I, _I, _I], _I),
         "sw_groups_lab_error_string": ([_I], ctypes.c_char_p),
     },
 }

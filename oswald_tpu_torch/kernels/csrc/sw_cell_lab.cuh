@@ -1,31 +1,36 @@
-// Lab bodies of the strip sweep: the column update of sw::sweep_strip
-// (sw_cell.cuh) written in the forms that oswald_tpu's kernel lab compares
+// Lab bodies of the tiled sweep (sw_tile.cuh): the column update written in
+// the forms that oswald_tpu's kernel lab compares
 // (scripts/kernel_lab.py::_kernel_lab), plus one of the card's own.  Every
 // body is an exact rewrite of the same recurrence, so every variant returns
 // the scores of sw_groups; only the order of the work inside one column of
 // U rows differs:
 //
+//   base   the engine's own body (sw::EngineColumn): one chain in Hopper's
+//          fused forms, so `base` with the reads ahead at U = 16 is sw_groups
 //   fscan  all U cur' first, then the serial F scan (2 operations per row),
 //          then H = max(cur', F) and the classical E' = max(E - e, H - oe);
 //          the score is taken over H
 //   pmax   fscan with the score taken over cur' (F never exceeds an earlier
 //          cur' of its column)
-//   noadj  pmax with E' = max(E - e, cur' - oe): the algebra of sweep_strip,
+//   noadj  pmax with E' = max(E - e, cur' - oe): the engine's algebra,
 //          written as three passes instead of one chain
 //   ks     fscan with F from a Kogge-Stone prefix maximum over U + 1 values
 //          biased by (u + 1) * e, log2 depth instead of a serial scan
-//   pre    fscan with column j + 1's U score words read from shared memory
-//          before column j's chain (its residue is loaded two columns ahead)
+//   pre    fscan with column j + 1's U / 4 profile words read before column
+//          j's chain (within a tile: the next tile's residues may not have
+//          landed, so a tile's first column is read at its head)
 //   dpx    noadj with Hopper's fused add-max and three-way max instructions
 //          written out (__viaddmax_s32_relu, __viaddmax_s32, __vimax3_s32)
 //
-// `base` is sw::sweep_strip itself and has no body here.  Beside the body, a
-// launch chooses where the three loads of a column sit (sweep_strip_lab's
-// kAhead), the placement that sw_cell.cuh found to decide a 2x swing.
+// Beside the body, a launch chooses the strip height U and where a column's
+// shared-memory reads (residue, H, F) sit: where they are used, or one column
+// ahead of the chain (sweep_tiles' kAhead).
 
 #pragma once
 
-#include "sw_cell.cuh"
+#include <type_traits>
+
+#include "sw_tile.cuh"
 
 namespace sw {
 
@@ -111,93 +116,37 @@ __device__ __forceinline__ int32_t lab_column(
   return f_out;
 }
 
-// sweep_strip with the column body of variant V; arguments and the scratch
-// protocol are sweep_strip's.  kAhead is sweep_strip's kPrefetch for every
-// body: the residue, H and F of column j + 1 are loaded before column j's
-// chain instead of where they are used, so the lab can tell what a body
-// costs from what the placement of its loads costs.
-template <int U, int V, bool kAhead>
-__device__ __forceinline__ int32_t sweep_strip_lab(
-    const int8_t* __restrict__ res, int32_t* __restrict__ hr,
-    int32_t* __restrict__ fr, int L, const int32_t (&qo)[U],
-    const int32_t* sm, int oe, int e, bool first, bool last, int32_t best) {
-  if constexpr (V == kBase) {
-    return sweep_strip<U, kAhead>(res, hr, fr, L, qo, sm, oe, e, first, last,
-                                  best);
-  } else {
-    if (L <= 0) return best;
-    int32_t hl[U], ee[U], s[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      hl[u] = 0;                  // H[i0 + u][j - 1]
-      ee[u] = 0;                  // E[i0 + u][j]
-    }
-    int32_t hprev = 0;            // H[i0 - 1][j - 1]
-    // loaded ahead: the residue of column j + 1 (pre: and its scores, with
-    // the residue of column j + 2), H[i0 - 1][j + 1] and F[i0][j + 1]
-    int r_next = 0;
-    int32_t hup_next = 0, f_next = 0;
-    if constexpr (V == kPre) {
-      const int r0 = res[0];
-#pragma unroll
-      for (int u = 0; u < U; ++u) s[u] = sm[qo[u] + r0];
-      r_next = res[(size_t)min(1, L - 1) * kGroupLanes];
-    } else if constexpr (kAhead) {
-      r_next = res[0];
-    }
-    if constexpr (kAhead) {
-      if (!first) {
-        hup_next = hr[0];
-        f_next = fr[0];
-      }
-    }
-    for (int j = 0; j < L; ++j) {
-      const size_t p = (size_t)j * kGroupLanes;
-      const size_t pn = (size_t)min(j + 1, L - 1) * kGroupLanes;
-      int32_t hup, f;             // H[i0 - 1][j], F[i0][j]
-      if constexpr (kAhead) {
-        hup = hup_next;
-        f = f_next;
-        if (!first) {
-          hup_next = hr[pn];
-          f_next = fr[pn];
-        }
-      } else {
-        hup = first ? 0 : hr[p];
-        f = first ? 0 : fr[p];
-      }
-      int32_t f_out;
-      if constexpr (V == kPre) {
-        // column j + 1's scores and column j + 2's residue are on their way
-        // before column j's chain starts
-        int32_t s_next[U];
-        const int r1 = r_next;
-        r_next = res[(size_t)min(j + 2, L - 1) * kGroupLanes];
-#pragma unroll
-        for (int u = 0; u < U; ++u) s_next[u] = sm[qo[u] + r1];
-        f_out = lab_column<U, kFscan>(s, hprev, f, hl, ee, oe, e, best);
-#pragma unroll
-        for (int u = 0; u < U; ++u) s[u] = s_next[u];
-      } else {
-        int r;
-        if constexpr (kAhead) {
-          r = r_next;
-          r_next = res[pn];
-        } else {
-          r = res[p];
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) s[u] = sm[qo[u] + r];
-        f_out = lab_column<U, V>(s, hprev, f, hl, ee, oe, e, best);
-      }
-      if (!last) {
-        hr[p] = hl[U - 1];
-        fr[p] = f_out;
-      }
-      hprev = hup;
-    }
-    return best;
+// The column body of lab variant V != kBase for sweep_tiles: the scores of
+// the column from the strip's profile, then lab_column.  `pre` carries the
+// scores of the column to come in s.
+template <int U, int V>
+struct LabColumn {
+  static constexpr bool kNext = V == kPre;
+  int32_t s[U];
+  __device__ __forceinline__ void head(const int32_t* prof, int r) {
+    if constexpr (V == kPre) load_scores<U>(prof, r, s);
   }
-}
+  __device__ __forceinline__ int32_t operator()(
+      const int32_t* prof, int r, int rn, int32_t diag, int32_t f,
+      int32_t (&hl)[U], int32_t (&ee)[U], int oe, int e, int32_t& best) {
+    if constexpr (V == kPre) {
+      int32_t s_next[U];
+      load_scores<U>(prof, rn, s_next);
+      f = lab_column<U, kFscan>(s, diag, f, hl, ee, oe, e, best);
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] = s_next[u];
+      return f;
+    } else {
+      int32_t sc[U];
+      load_scores<U>(prof, r, sc);
+      return lab_column<U, V>(sc, diag, f, hl, ee, oe, e, best);
+    }
+  }
+};
+
+// The body of variant V: the engine's own for kBase.
+template <int U, int V>
+using LabBody = std::conditional_t<V == kBase, EngineColumn<U>,
+                                   LabColumn<U, V>>;
 
 }  // namespace sw

@@ -27,10 +27,11 @@
 //   to build the strip's 24 x 16 score profile, and shared memory (27 KB,
 //   static) does not grow with the query.
 //
-// What bounds it on an H100: the INT32 pipe.  The ten additions and maxima
-// of a cell fuse into 5.5 instructions (add-max with a floor of 0, add-max,
-// one three-way max for two cells), at 64 lanes an SM and clock; the bytes
-// (each residue once, each score once) are a thousandth of that.  Tensor cores are not used: wgmma has no max-plus
+// What bounds it on an H100: integer instructions.  The ten additions and
+// maxima of a cell fuse into 5.5 instructions (add-max with a floor of 0,
+// add-max, one three-way max for two cells), issued at most 128 lanes an SM
+// and clock; the bytes (each residue once, each score once) are a
+// thousandth of that.  Tensor cores are not used: wgmma has no max-plus
 // product.  PERF.md has the measured times beside the bound.
 
 #include "sw_tile.cuh"
@@ -38,14 +39,6 @@
 namespace {
 
 using namespace sw;
-
-struct OneSegment {
-  int m;
-  __device__ void operator()(int, int& r0, int& n) const {
-    r0 = 0;
-    n = m;
-  }
-};
 
 template <int U>
 __global__ void __launch_bounds__(kRowLanes, kBlocksPerSm)
@@ -56,10 +49,11 @@ sw_groups_kernel(const int8_t* __restrict__ db,
                  const int32_t* __restrict__ submat, int oe, int e,
                  int32_t* __restrict__ hrow, int32_t* __restrict__ frow,
                  int32_t* __restrict__ scores) {
-  __shared__ BlockShared S;
+  __shared__ BlockShared<U> S;
   init_block(S, submat);
-  score_item<U>(S, db, groups, n_groups, work, query, 1, OneSegment{m}, oe, e,
-                hrow, frow, scores);
+  score_item<U, EngineColumn<U>, true>(S, db, groups, n_groups, work, query,
+                                       1, OneSegment{m}, oe, e, hrow, frow,
+                                       scores);
 }
 
 }  // namespace

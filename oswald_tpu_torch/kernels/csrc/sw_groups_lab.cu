@@ -1,26 +1,30 @@
 // The kernel lab of the port: sw_groups with the column body chosen by
-// `variant`, for Hopper (sm_90a).
+// `variant` and the strip height by `rows`, for Hopper (sm_90a).
 //
 // Replaces scripts/kernel_lab.py::sw_chunk_lab (the Pallas lab kernel) chained
 // over a bin as its _scan_bin chains it: one launch scores the query against
 // every group of the table and returns the int32 per-lane scores, which every
-// variant must give equal to sw_groups'.  The database layout, the scratch
-// and the shared matrix are those of sw_groups.cu; the geometry is the lab's
-// own, one thread per subject for the whole sweep (one block of 128 threads
-// per 128-lane row of a group in table order, strips of
-// U = 16 query rows in registers, every strip in turn over all L columns, H
-// and F rows between strips in a global scratch, the query as row offsets in
-// shared memory); only the column body differs, one template instantiation
-// per variant (sw_cell_lab.cuh lists them) and placement of the column's
-// loads.  `base` is sw::sweep_strip<16, kAhead> (sw_cell.cuh).
+// variant must give equal to sw_groups'.  The JAX lab's u_rows is `rows` here;
+// its group_block and col_unroll set the TPU's schedule and have no
+// counterpart.
 //
-// What bounds the work on an H100 is what bounds sw_groups: the INT32 pipe, at
-// best 5.5 fused instructions per cell of the recurrence whatever body carries
-// it out (only the dpx body uses the fused forms).  The
-// lab exists to measure what the order of that work inside a column is worth:
-// a shorter dependent chain (fscan, ks), fewer operations (pmax, noadj, dpx),
-// score words loaded ahead of the chain (pre), and the column's three global
-// loads started one column ahead (load_ahead).
+// The kernel is sw_groups_kernel (sw_groups.cu) with three template arguments
+// where the engine has constants: the strip height U, the column body
+// (sw_cell_lab.cuh) and the placement of a column's shared-memory reads
+// (kAhead).  Everything else is the engine's sweep (sw_tile.cuh): the work
+// table, rows and pipelined slabs, staged tiles, the per-strip score profile,
+// the launch bounds, the query in global memory (any length launches).  So
+// the lab measures bodies on the sweep the engine ships, and `base` with the
+// reads ahead at U = 16 is sw_groups itself.
+//
+// What bounds the work on an H100 is what bounds sw_groups: integer
+// instructions, at best 5.5 fused ones per cell of the recurrence whatever
+// body carries it out (only `base` and `dpx` use the fused forms).  The lab
+// exists to measure what the order of that work inside a column is worth: a
+// shorter dependent chain (fscan, ks), fewer operations (pmax, noadj, dpx),
+// score words read ahead of the chain (pre), the column's reads one column
+// ahead (load_ahead), and the strip height (the per-column and per-strip
+// overhead against registers).
 
 #include "sw_cell_lab.cuh"
 
@@ -28,103 +32,84 @@ namespace {
 
 using namespace sw;
 
-template <int V, bool kAhead>
-__global__ void __launch_bounds__(kRowLanes)
+template <int U, int V, bool kAhead>
+__global__ void __launch_bounds__(kRowLanes, kBlocksPerSm)
 sw_groups_lab_kernel(const int8_t* __restrict__ db,
-                     const int32_t* __restrict__ groups,
+                     const int32_t* __restrict__ groups, int n_groups,
+                     const int32_t* __restrict__ work,
                      const int32_t* __restrict__ query, int m,
                      const int32_t* __restrict__ submat, int oe, int e,
                      int32_t* __restrict__ hrow, int32_t* __restrict__ frow,
                      int32_t* __restrict__ scores) {
-  constexpr int U = kStripRows;
-  extern __shared__ int32_t smem[];
-  int32_t* sm = smem;                                // [25, 24]
-  int32_t* qoff = smem + kMatrixWords;               // [m_pad]
-  const int m_pad = (m + U - 1) / U * U;
-  load_matrix(sm, submat);
-  for (int i = threadIdx.x; i < m_pad; i += kRowLanes)
-    qoff[i] = (i < m ? query[i] : kZeroRow) * kAlpha;
-  __syncthreads();
-
-  const int g = blockIdx.x / kRowsPerGroup;
-  const int row = blockIdx.x % kRowsPerGroup;
-  const size_t base = (size_t)groups[2 * g] * kGroupLanes +
-                      (size_t)row * kRowLanes + threadIdx.x;
-  const int L = groups[2 * g + 1];
-
-  int32_t best = 0;
-  for (int i0 = 0; i0 < m_pad; i0 += U) {
-    int32_t qo[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) qo[u] = qoff[i0 + u];
-    best = sweep_strip_lab<U, V, kAhead>(db + base, hrow + base, frow + base,
-                                         L, qo, sm, oe, e, i0 == 0,
-                                         i0 + U >= m_pad, best);
-  }
-  scores[(size_t)g * kGroupLanes + (size_t)row * kRowLanes + threadIdx.x] =
-      best;
+  __shared__ BlockShared<U> S;
+  init_block(S, submat);
+  score_item<U, LabBody<U, V>, kAhead>(S, db, groups, n_groups, work, query,
+                                       1, OneSegment{m}, oe, e, hrow, frow,
+                                       scores);
 }
 
-template <int V, bool kAhead>
-int launch(const void* db, const void* groups, int n_groups,
-           const void* query, int m, const void* submat, int open_gap,
-           int extend_gap, void* hrow, void* frow, void* scores,
+template <int U, int V, bool kAhead>
+int launch(const void* db, const void* groups, int n_groups, const void* work,
+           int n_items, const void* query, int m, const void* submat,
+           int open_gap, int extend_gap, void* hrow, void* frow, void* scores,
            void* stream) {
-  constexpr int U = kStripRows;
-  const int m_pad = (m + U - 1) / U * U;
-  const size_t shmem = ((size_t)kMatrixWords + m_pad) * sizeof(int32_t);
-  if (shmem > 48 * 1024) {
-    // a query too long for the card's shared memory is refused here
-    const cudaError_t err = cudaFuncSetAttribute(
-        sw_groups_lab_kernel<V, kAhead>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (err != cudaSuccess) {
-      (void)cudaGetLastError();
-      return (int)err;
-    }
-  }
-  sw_groups_lab_kernel<V, kAhead>
-      <<<n_groups * kRowsPerGroup, kRowLanes, shmem, (cudaStream_t)stream>>>(
-      (const int8_t*)db, (const int32_t*)groups, (const int32_t*)query, m,
-      (const int32_t*)submat, open_gap + extend_gap, extend_gap,
-      (int32_t*)hrow, (int32_t*)frow, (int32_t*)scores);
+  sw_groups_lab_kernel<U, V, kAhead>
+      <<<n_items, kRowLanes, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)db, (const int32_t*)groups, n_groups,
+      (const int32_t*)work, (const int32_t*)query, m, (const int32_t*)submat,
+      open_gap + extend_gap, extend_gap, (int32_t*)hrow, (int32_t*)frow,
+      (int32_t*)scores);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // sw_groups_launch (sw_groups.cu) with the column body of `variant`
-// (sw::LabVariant: 0 base, 1 fscan, 2 pmax, 3 noadj, 4 ks, 5 pre, 6 dpx) and,
-// with load_ahead != 0, each column's loads started one column ahead.
-// Launches on `stream` without synchronising and returns cudaGetLastError().
+// (sw::LabVariant: 0 base, 1 fscan, 2 pmax, 3 noadj, 4 ks, 5 pre, 6 dpx),
+// strips of `rows` query rows and, with load_ahead != 0, each column's reads
+// one column ahead.  Built: every variant at 16 rows in both placements;
+// base and dpx at 8 and 32 rows with the reads ahead.  Any other choice is
+// refused with cudaErrorInvalidValue, as are the inputs sw_groups_launch
+// refuses.  Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int sw_groups_lab_launch(const void* db, const void* groups,
-                                    int n_groups, const void* query, int m,
+                                    int n_groups, const void* work,
+                                    int n_items, const void* query, int m,
                                     const void* submat, int open_gap,
                                     int extend_gap, void* hrow, void* frow,
                                     void* scores, void* stream, int variant,
-                                    int load_ahead) {
-  if (n_groups <= 0 || m <= 0 || variant < 0 || variant >= kLabVariants)
+                                    int load_ahead, int rows) {
+  if (n_groups <= 0 || n_items <= 0 || m <= 0)
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(db) || !aligned16(hrow) || !aligned16(frow))
+    return (int)cudaErrorMisalignedAddress;
   (void)cudaGetLastError();   // drop a refused call's error from before
-#define SW_LAB_CASE(V)                                                       \
-  case V:                                                                    \
-    return load_ahead                                                        \
-               ? launch<V, true>(db, groups, n_groups, query, m, submat,     \
-                                 open_gap, extend_gap, hrow, frow, scores,   \
-                                 stream)                                     \
-               : launch<V, false>(db, groups, n_groups, query, m, submat,    \
-                                  open_gap, extend_gap, hrow, frow, scores,  \
-                                  stream)
-  switch (variant) {
-    SW_LAB_CASE(kBase);
-    SW_LAB_CASE(kFscan);
-    SW_LAB_CASE(kPmax);
-    SW_LAB_CASE(kNoadj);
-    SW_LAB_CASE(kKs);
-    SW_LAB_CASE(kPre);
-    SW_LAB_CASE(kDpx);
+#define SW_LAB_LAUNCH(U, V, A)                                                \
+  launch<U, V, A>(db, groups, n_groups, work, n_items, query, m, submat,      \
+                  open_gap, extend_gap, hrow, frow, scores, stream)
+#define SW_LAB_CASE(V)                                                        \
+  case V:                                                                     \
+    return load_ahead ? SW_LAB_LAUNCH(16, V, true) : SW_LAB_LAUNCH(16, V, false)
+  if (rows == 16) {
+    switch (variant) {
+      SW_LAB_CASE(kBase);
+      SW_LAB_CASE(kFscan);
+      SW_LAB_CASE(kPmax);
+      SW_LAB_CASE(kNoadj);
+      SW_LAB_CASE(kKs);
+      SW_LAB_CASE(kPre);
+      SW_LAB_CASE(kDpx);
+    }
+  } else if (load_ahead && (variant == kBase || variant == kDpx)) {
+    const bool dpx = variant == kDpx;
+    if (rows == 8)
+      return dpx ? SW_LAB_LAUNCH(8, kDpx, true) : SW_LAB_LAUNCH(8, kBase, true);
+    if (rows == 32)
+      return dpx ? SW_LAB_LAUNCH(32, kDpx, true)
+                 : SW_LAB_LAUNCH(32, kBase, true);
   }
 #undef SW_LAB_CASE
+#undef SW_LAB_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -27,7 +27,7 @@
 //   than a one-segment launch.
 // - The packed rows stay in global memory, whatever their number.
 //
-// What bounds it on an H100: as sw_groups, the INT32 pipe (5.5 fused
+// What bounds it on an H100: as sw_groups, integer instructions (5.5 fused
 // instructions per cell), with the residue column read once per strip from L2.
 // PERF.md has the measured times beside the bound.
 
@@ -58,10 +58,11 @@ sw_groups_packed_kernel(const int8_t* __restrict__ db,
                         int32_t* __restrict__ hrow,
                         int32_t* __restrict__ frow,
                         int32_t* __restrict__ scores) {
-  __shared__ BlockShared S;
+  __shared__ BlockShared<U> S;
   init_block(S, submat);
-  score_item<U>(S, db, groups, n_groups, work, q_packed, n_segs,
-                Segments{segs, m_tot}, oe, e, hrow, frow, scores);
+  score_item<U, EngineColumn<U>, true>(S, db, groups, n_groups, work,
+                                       q_packed, n_segs, Segments{segs, m_tot},
+                                       oe, e, hrow, frow, scores);
 }
 
 }  // namespace

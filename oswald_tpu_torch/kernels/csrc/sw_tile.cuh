@@ -46,6 +46,11 @@
 // All waiting is between warps of one block (mbarriers and one counter in
 // shared memory): no block waits on another.  Tensor cores are not used:
 // wgmma has no max-plus product.
+//
+// The sweep is a template over the strip height U, the column body and the
+// placement of a column's shared-memory reads.  The engine kernels take
+// U = kStripRows, EngineColumn and the reads one column ahead; the kernel lab
+// (sw_groups_lab.cu) takes other bodies and placements on the same sweep.
 
 #pragma once
 
@@ -85,18 +90,20 @@ static_assert(kTileCols * kWarpLanes * 4 / 16 % kWarpLanes == 0,
 static_assert(2 * kTileCols <= kWarpLanes,
               "the 16-byte chunks of a residue tile fit one per lane");
 
+template <int U>
 struct __align__(16) WarpShared {
   int32_t hf[kSlots][2][kTileCols][kWarpLanes];   // input ring: H, F
   int8_t res[2][kTileCols][kWarpLanes];           // staged residues
-  // the strip's scores: [rows u / 4][residue][row u % 4], so the 16 scores
-  // of a residue are four 16-byte words
-  int32_t prof[kStripRows / 4][kAlpha][4];
+  // the strip's scores: [rows u / 4][residue][row u % 4], so the U scores
+  // of a residue are U / 4 16-byte words
+  int32_t prof[U / 4][kAlpha][4];
   unsigned long long full[kSlots], empty[kSlots]; // mbarriers of the ring
 };
 
+template <int U>
 struct __align__(16) BlockShared {
   int32_t sm[kMatrixWords];         // 24 x 24 matrix and a row of zeros
-  WarpShared warp[kSets];
+  WarpShared<U> warp[kSets];
   int progress[2];                  // tiles finished by set 0, by the last set
 };
 
@@ -154,7 +161,8 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
 // Once per block, before the first sweep: the matrix, the barriers (one
 // arrival each: lane 0 of the warp that filled or drained the slot) and the
 // counter.
-__device__ __forceinline__ void init_block(BlockShared& S,
+template <int U>
+__device__ __forceinline__ void init_block(BlockShared<U>& S,
                                            const int32_t* __restrict__ submat) {
   load_matrix(S.sm, submat);
   if (threadIdx.x < kSets) {
@@ -180,7 +188,67 @@ struct WarpState {
   int n_done;       // tiles swept so far
 };
 
-// One warp sweeps one strip of U rows over the L columns of its 32 subjects.
+// The U scores of residue r from a strip's profile: U / 4 16-byte words.
+template <int U>
+__device__ __forceinline__ void load_scores(const int32_t* prof, int r,
+                                            int32_t (&sc)[U]) {
+  const int4* pr = reinterpret_cast<const int4*>(prof) + r;
+#pragma unroll
+  for (int k = 0; k < U / 4; ++k) {
+    const int4 v = pr[k * kAlpha];
+    sc[4 * k] = v.x;
+    sc[4 * k + 1] = v.y;
+    sc[4 * k + 2] = v.z;
+    sc[4 * k + 3] = v.w;
+  }
+}
+
+// The column body of the engine kernels: one column of U rows as one chain.
+// A body is called once per column with the strip's profile, the column's
+// residue r (and, where kNext, the next column's residue rn of the same
+// tile), H[i0 - 1][j - 1] as diag, the F entering the strip's first row, and
+// hl/ee carrying H[.][j - 1] and E[.][j] in and H[.][j] and E[.][j + 1] out;
+// it returns the F leaving the last row and folds every cur' into best.
+// head() is called at the head of every tile with the residue of its first
+// column.
+//
+// The sweep is bound by integer instructions (PERF.md), so the chain is written
+// for few integer instructions: the cell update of sw_cell.cuh in Hopper's
+// fused add-max and three-way max forms, and the U scores of a column as
+// U / 4 16-byte loads from the strip's profile (24 residues x U rows, built
+// in shared memory at the head of the strip) instead of U address sums and
+// U loads from the matrix.  Measured over a SwissProt-sized database at
+// m = 512 (NVIDIA H100 80GB HBM3, 700.00 W): 46.1 ms with lookups in the
+// matrix, 41.3 ms with the profile, 39.4 ms with the three-way max as well.
+template <int U>
+struct EngineColumn {
+  static constexpr bool kNext = false;
+  __device__ __forceinline__ void head(const int32_t*, int) {}
+  __device__ __forceinline__ int32_t operator()(
+      const int32_t* prof, int r, int, int32_t diag, int32_t f,
+      int32_t (&hl)[U], int32_t (&ee)[U], int oe, int e, int32_t& best) {
+    int32_t sc[U];                  // scores of the U rows against r
+    load_scores<U>(prof, r, sc);
+    int32_t cp_even = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int32_t cp = __viaddmax_s32_relu(diag, sc[u], ee[u]);
+      const int32_t cc = cp - oe;
+      if (u % 2 == 0)
+        cp_even = cp;
+      else
+        best = __vimax3_s32(best, cp_even, cp);
+      diag = hl[u];
+      hl[u] = max(cp, f);
+      ee[u] = __viaddmax_s32(ee[u], -e, cc);
+      f = __viaddmax_s32(f, -e, cc);
+    }
+    return f;
+  }
+};
+
+// One warp sweeps one strip of U rows over the L columns of its 32 subjects
+// with column body Body (EngineColumn<U> in the engine kernels).
 // qrow points at the strip's first row code, of which nrow (or more) are
 // left in the segment; rows past them score 0.  res, hrow and frow point at
 // lane 0 of the slab in column 0; consecutive columns are kGroupLanes
@@ -189,29 +257,21 @@ struct WarpState {
 // ring; unless `last`, H of the strip's last row and F leaving it go to the
 // next set's ring or to hrow/frow.  Returns the maximum of `best` and every
 // cur' of the strip.
-//
-// The sweep is bound by the integer pipe (PERF.md), so the column loop is
-// written for few integer instructions: the cell update is sweep_strip's
-// (sw_cell.cuh) in Hopper's fused add-max and three-way max forms, and the
-// 16 scores of a column come as four 16-byte loads from a profile of the
-// strip (24 residues x U rows, built in shared memory at the head of the
-// strip) instead of 16 address sums and 16 loads from the matrix.  Measured
-// over a SwissProt-sized database at m = 512 (NVIDIA H100 80GB HBM3,
-// 700.00 W): 46.1 ms with lookups in the matrix, 41.3 ms with the profile,
-// 39.4 ms with the three-way max as well.
-template <int U>
+// With kAhead the residue, H and F of column j + 1 leave shared memory
+// before column j's chain; without it they are read where they are used.
+template <int U, class Body, bool kAhead>
 __device__ __forceinline__ int32_t sweep_tiles(
-    BlockShared& S, WarpState& st, const int8_t* __restrict__ res,
+    BlockShared<U>& S, WarpState& st, const int8_t* __restrict__ res,
     int32_t* __restrict__ hrow, int32_t* __restrict__ frow, int L,
     const int32_t* __restrict__ qrow, int nrow, int oe, int e, bool first,
     bool last, int32_t best) {
-  static_assert(U == kStripRows && U % 4 == 0, "the profile holds U rows");
+  static_assert(U % 4 == 0, "the profile holds U rows as 16-byte words");
   constexpr int T = kTileCols;
   const int lane = threadIdx.x % kWarpLanes;
   const int n_tiles = (L + T - 1) / T;
   // every warp has its own ring; in the long role warp w is set w
   const int warp = threadIdx.x / kWarpLanes;
-  WarpShared& in = S.warp[warp];
+  WarpShared<U>& in = S.warp[warp];
   const bool from_ring = !first && st.set > 0;
   const bool from_scratch = !first && st.set == 0;
   const bool to_ring = !last && st.set + 1 < st.sets;
@@ -229,6 +289,7 @@ __device__ __forceinline__ int32_t sweep_tiles(
   const bool held = to_scratch && st.sets > 1;
   const int hold = st.n_done + 1;
   const int32_t* sm = S.sm;
+  const int32_t* prof = &in.prof[0][0][0];
 
   auto fetch = [&](int c) {
     const int cols = min(T, L - c * T);
@@ -263,6 +324,7 @@ __device__ __forceinline__ int32_t sweep_tiles(
     ee[u] = 0;                      // E[i0 + u][j]
   }
   int32_t hprev = 0;                // H[i0 - 1][j - 1]
+  Body body;
   __syncwarp();                     // the strip before is stored and read
   if (n_tiles > 0) fetch(0);
   // the profile; the first __syncwarp of the tile loop publishes it
@@ -289,7 +351,7 @@ __device__ __forceinline__ int32_t sweep_tiles(
     int out_step = kGroupLanes;
     int out_slot = 0;
     if (to_ring) {
-      WarpShared& next = S.warp[warp + 1];
+      WarpShared<U>& next = S.warp[warp + 1];
       out_slot = st.n_out % kSlots;
       mbar_wait(&next.empty[out_slot], ((st.n_out / kSlots) & 1) ^ 1);
       out_h = &next.hf[out_slot][0][0][lane];
@@ -299,50 +361,43 @@ __device__ __forceinline__ int32_t sweep_tiles(
     if (held)
       while (*(volatile int*)&S.progress[0] < hold + c) __nanosleep(32);
     const int8_t* rs = &in.res[c & 1][0][lane];
-    // column j + 1's operands leave shared memory before column j's chain
-    int r_next = rs[0];
-    int32_t hup_next = first ? 0 : in_h[0];
-    int32_t f_next = first ? 0 : in_f[0];
-    for (int j = 0; j < cols; ++j) {
-      const int r = r_next;
-      const int32_t hup = hup_next;   // H[i0 - 1][j]
-      int32_t f = f_next;             // F[i0][j]
-      const int jn = min(j + 1, cols - 1) * kWarpLanes;
-      r_next = rs[jn];
-      if (!first) {
-        hup_next = in_h[jn];
-        f_next = in_f[jn];
+    if constexpr (kAhead) {
+      // column j + 1's operands leave shared memory before column j's chain
+      int r_next = rs[0];
+      int32_t hup_next = first ? 0 : in_h[0];
+      int32_t f_next = first ? 0 : in_f[0];
+      body.head(prof, r_next);
+      for (int j = 0; j < cols; ++j) {
+        const int r = r_next;
+        const int32_t hup = hup_next;   // H[i0 - 1][j]
+        int32_t f = f_next;             // F[i0][j]
+        const int jn = min(j + 1, cols - 1) * kWarpLanes;
+        r_next = rs[jn];
+        if (!first) {
+          hup_next = in_h[jn];
+          f_next = in_f[jn];
+        }
+        f = body(prof, r, r_next, hprev, f, hl, ee, oe, e, best);
+        if (!last) {
+          out_h[j * out_step] = hl[U - 1];
+          out_f[j * out_step] = f;
+        }
+        hprev = hup;
       }
-      int32_t diag = hprev;
-      int32_t sc[U];                  // scores of the U rows against r
-      const int4* pr = reinterpret_cast<const int4*>(&in.prof[0][0][0]) + r;
-#pragma unroll
-      for (int k = 0; k < U / 4; ++k) {
-        const int4 v = pr[k * kAlpha];
-        sc[4 * k] = v.x;
-        sc[4 * k + 1] = v.y;
-        sc[4 * k + 2] = v.z;
-        sc[4 * k + 3] = v.w;
+    } else {
+      body.head(prof, rs[0]);
+      for (int j = 0; j < cols; ++j) {
+        const int r = rs[j * kWarpLanes];
+        const int32_t hup = first ? 0 : in_h[j * kWarpLanes];
+        int32_t f = first ? 0 : in_f[j * kWarpLanes];
+        const int rn = Body::kNext ? rs[min(j + 1, cols - 1) * kWarpLanes] : 0;
+        f = body(prof, r, rn, hprev, f, hl, ee, oe, e, best);
+        if (!last) {
+          out_h[j * out_step] = hl[U - 1];
+          out_f[j * out_step] = f;
+        }
+        hprev = hup;
       }
-      int32_t cp_even = 0;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int32_t cp = __viaddmax_s32_relu(diag, sc[u], ee[u]);
-        const int32_t cc = cp - oe;
-        if (u % 2 == 0)
-          cp_even = cp;
-        else
-          best = __vimax3_s32(best, cp_even, cp);
-        diag = hl[u];
-        hl[u] = max(cp, f);
-        ee[u] = __viaddmax_s32(ee[u], -e, cc);
-        f = __viaddmax_s32(f, -e, cc);
-      }
-      if (!last) {
-        out_h[j * out_step] = hl[U - 1];
-        out_f[j * out_step] = f;
-      }
-      hprev = hup;
     }
     ++st.n_done;
     if (from_ring || to_ring || publishes >= 0) {
@@ -362,13 +417,22 @@ __device__ __forceinline__ int32_t sweep_tiles(
   return best;
 }
 
+// The segments of a one-query launch: the query's m rows.
+struct OneSegment {
+  int m;
+  __device__ void operator()(int, int& r0, int& n) const {
+    r0 = 0;
+    n = m;
+  }
+};
+
 // One block scores one work item for every segment.  `seg(s, r0, n)` gives
 // segment s as (first row, row count) into q; scores is int32[n_segs,
 // n_groups, 8, 128], zeroed before the launch (the sets of the long role
 // merge their maxima with atomicMax).
-template <int U, class Seg>
+template <int U, class Body, bool kAhead, class Seg>
 __device__ __forceinline__ void score_item(
-    BlockShared& S, const int8_t* __restrict__ db,
+    BlockShared<U>& S, const int8_t* __restrict__ db,
     const int32_t* __restrict__ groups, int n_groups,
     const int32_t* __restrict__ work, const int32_t* __restrict__ q,
     int n_segs, Seg seg, int oe, int e, int32_t* __restrict__ hrow,
@@ -392,9 +456,10 @@ __device__ __forceinline__ void score_item(
     int32_t best = 0;
     for (int t = (st.set - k0 + st.sets) % st.sets; t < n_strips;
          t += st.sets) {
-      best = sweep_tiles<U>(S, st, db + base, hrow + base, frow + base, L,
-                            q + r0 + t * U, n - t * U, oe, e, t == 0,
-                            t == n_strips - 1, best);
+      best = sweep_tiles<U, Body, kAhead>(S, st, db + base, hrow + base,
+                                          frow + base, L, q + r0 + t * U,
+                                          n - t * U, oe, e, t == 0,
+                                          t == n_strips - 1, best);
     }
     k0 = (k0 + n_strips) % st.sets;
     int32_t* out = scores + ((size_t)s * n_groups + g) * kGroupLanes + lane0 +

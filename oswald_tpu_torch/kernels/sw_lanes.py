@@ -217,10 +217,10 @@ def work_table(groups, long_from: int = None, host=None) -> WorkTable:
 
 
 def _launch(name, residues, groups, rows, segs, submat, open_gap,
-            extend_gap, scratch, work):
-    """Launch kernel `name` on tensors that passed _check.  Returns
-    (int32[S, G, 8, 128], whether a kernel was launched: an empty table
-    launches nothing)."""
+            extend_gap, scratch, work, extra=()):
+    """Launch kernel `name` on tensors that passed _check, with the ints
+    `extra` after the stream.  Returns (int32[S, G, 8, 128], whether a
+    kernel was launched: an empty table launches nothing)."""
     dev = residues.device
     if dev.type != "cuda":
         raise ValueError(f"sw_groups: no kernel for device {dev}")
@@ -244,7 +244,7 @@ def _launch(name, residues, groups, rows, segs, submat, open_gap,
             residues.data_ptr(), groups.data_ptr(), n, work.items.data_ptr(),
             len(work), *query_args, submat.data_ptr(), int(open_gap),
             int(extend_gap), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, *extra)
     build.check(lib, name, err)
     return out, True
 
@@ -373,45 +373,53 @@ def sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
     return torch.stack(out)
 
 
-def _strip_columns(cols, prof, h_in, f_in, oe, e, state):
+def _engine_step(diag, s, ee, f_in, oe, e, bias):
+    """One column of a strip, every row at once, as the engine kernels
+    compute it.  diag, s, ee: int32[lanes, U] (H[.][j - 1] shifted down a
+    row, the scores, E[.][j]); f_in: int32[lanes], F entering the first row;
+    bias: (1..U) * e.  Returns (H, E[.][j + 1], the F leaving the last row,
+    the values the score is taken over).  cur' = max(diag + s, 0, E),
+    H = max(cur', F), E' = max(E - e, cur' - oe), F down the rows as a
+    running maximum: with a[u] = F[u] + u e, F[u] = max(F[u - 1] - e,
+    c[u - 1]) is a running maximum of {f_in, c[u - 1] + u e}."""
+    cp = torch.maximum((diag + s).clamp_min(0), ee)
+    c = cp - oe
+    run = torch.cummax(torch.cat([f_in[:, None], c + bias], dim=1),
+                       dim=1).values
+    F = run[:, :-1] - (bias - e)
+    return torch.maximum(cp, F), torch.maximum(ee - e, c), \
+        run[:, -1] - bias[-1], cp
+
+
+def _strip_columns(cols, prof, h_in, f_in, oe, e, state, step=_engine_step):
     """One strip over the columns of one tile.  cols: long[n, lanes]; prof:
     int32[24, U] scores of the strip's rows; h_in, f_in: int32[n, lanes], H
     of the row above the strip and F entering it; state: [hl, ee, hprev,
     best] carried from the tile before, updated in place.  Returns (H of the
-    strip's last row, F leaving it), each int32[n, lanes].  The cell update
-    is the kernels': cur' = max(diag + s, 0, E), H = max(cur', F),
-    E' = max(E - e, cur' - oe), F down the rows as a running maximum."""
+    strip's last row, F leaving it), each int32[n, lanes].  `step` is the
+    column update (see _engine_step)."""
     hl, ee, hprev, best = state
-    U = prof.shape[1]
-    bias = torch.arange(1, U + 1, dtype=torch.int32) * e
+    bias = torch.arange(1, prof.shape[1] + 1, dtype=torch.int32) * e
     h_out, f_out = [], []
     for j in range(cols.shape[0]):
         diag = torch.cat([hprev[:, None], hl[:, :-1]], dim=1)
-        cp = torch.maximum((diag + prof[cols[j]]).clamp_min(0), ee)
-        c = cp - oe
-        # F[u] = max(F[u - 1] - e, c[u - 1]), F[0] = f_in: with
-        # a[u] = F[u] + u e a running maximum of {f_in, c[u - 1] + u e}
-        run = torch.cummax(torch.cat([f_in[j][:, None], c + bias], dim=1),
-                           dim=1).values
-        F = run[:, :-1] - (bias - e)
-        best = torch.maximum(best, cp.amax(dim=1))
-        hprev, hl = h_in[j], torch.maximum(cp, F)
-        ee = torch.maximum(ee - e, c)
+        hl, ee, f, over = step(diag, prof[cols[j]], ee, f_in[j], oe, e, bias)
+        best = torch.maximum(best, over.amax(dim=1))
+        hprev = h_in[j]
         h_out.append(hl[:, -1])
-        f_out.append(run[:, -1] - bias[-1])
+        f_out.append(f)
     state[:] = [hl, ee, hprev, best]
     return torch.stack(h_out), torch.stack(f_out)
 
 
-def sw_groups_packed_tiled_ref(residues, groups, q_packed, segs, submat,
-                               open_gap: int, extend_gap: int, scratch=None,
-                               work=None, tile_cols: int = TILE_COLS):
-    """Plain PyTorch version of `sw_groups_packed` by the kernel's own
-    decomposition (see module); `scratch` is ignored.  CPU tensors."""
-    _check(residues, groups, q_packed, submat, scratch, segs, work)
+def _tiled_ref(residues, groups, q_packed, segs, submat, open_gap, extend_gap,
+               work, strip_rows, tile_cols, step):
+    """int32[S, G, 8, 128] by the kernels' decomposition (see module), with
+    strips of `strip_rows` rows, tiles of `tile_cols` columns and the column
+    update `step` (see _engine_step).  CPU tensors that passed _check."""
     if work is None:
         work = work_table(groups)
-    U, T = STRIP_ROWS, int(tile_cols)
+    U, T = int(strip_rows), int(tile_cols)
     oe, e = int(open_gap) + int(extend_gap), int(extend_gap)
     n_segs, n_groups = segs.shape[0], groups.shape[0]
     lanes_g = GROUP_SHAPE[0] * GROUP_SHAPE[1]
@@ -456,7 +464,7 @@ def sw_groups_packed_tiled_ref(residues, groups, q_packed, segs, submat,
                     f_in = torch.zeros_like(h_in) if first else \
                         frow[j0:j1].clone()
                     h_out, f_out = _strip_columns(cols[j0:j1], prof, h_in,
-                                                  f_in, oe, e, state)
+                                                  f_in, oe, e, state, step)
                     if not last:
                         hrow[j0:j1], frow[j0:j1] = h_out, f_out
                 best[k % sets] = state[3]
@@ -465,6 +473,16 @@ def sw_groups_packed_tiled_ref(residues, groups, q_packed, segs, submat,
             out[s, g, lo:lo + n_lanes] = torch.maximum(
                 out[s, g, lo:lo + n_lanes], merged)
     return out.reshape((n_segs, n_groups) + GROUP_SHAPE)
+
+
+def sw_groups_packed_tiled_ref(residues, groups, q_packed, segs, submat,
+                               open_gap: int, extend_gap: int, scratch=None,
+                               work=None, tile_cols: int = TILE_COLS):
+    """Plain PyTorch version of `sw_groups_packed` by the kernel's own
+    decomposition (see module); `scratch` is ignored.  CPU tensors."""
+    _check(residues, groups, q_packed, submat, scratch, segs, work)
+    return _tiled_ref(residues, groups, q_packed, segs, submat, open_gap,
+                      extend_gap, work, STRIP_ROWS, tile_cols, _engine_step)
 
 
 def sw_groups_tiled_ref(residues, groups, query, submat, open_gap: int,

@@ -19,8 +19,8 @@ from oswald_tpu_torch.engine import SearchConfig, SearchEngine
 from oswald_tpu_torch.engine.search import mixed_pack_plan, plan_segments
 from oswald_tpu_torch.io import pack_sequences
 from oswald_tpu_torch.kernels import sw_lab, sw_lanes
-from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, sw_groups_lab,
-                                             sw_groups_lab_ref)
+from oswald_tpu_torch.kernels.sw_lab import (BUILT, VARIANTS, sw_groups_lab,
+                                             sw_groups_lab_tiled_ref)
 from oswald_tpu_torch.kernels.sw_lanes import (LONG_FROM, SETS, STRIP_ROWS,
                                                TILE_COLS, sw_groups,
                                                sw_groups_packed,
@@ -396,53 +396,76 @@ def test_cuda_search_many_matches_cpu(cuda):
     assert all(r.batch_n == len(queries) for r in got)
 
 
+# the tiled plain version walks every column of every item in Python: a
+# small table that still mixes rows (short groups) and slabs (from 40 on)
+SMALL_ROLES = [(1, 5), (2, 32), (1, TILE_COLS * SETS - 3), (1, 45)]
+
+
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_lab_kernel_matches_plain_versions(cuda, variant):
-    """Every lab variant: the kernel equals its own plain version, the
-    shipping plain version and sw_groups, over bins with tails and query
-    lengths of one row, a partial strip and several strips."""
-    for m, matrix, og, eg in ((1, "blosum62", 10, 2), (9, "blosum62", 11, 1),
-                              (33, "pam30", 7, 1), (100, "blosum62", 0, 0)):
-        rng = np.random.default_rng(m)
-        args = _inputs(rng, [(2, 32), (1, 224), (1, 96)], m, matrix, cuda)
-        before = sw_lab.launches_lab
-        got = sw_groups_lab(*args, og, eg, variant)
-        torch.cuda.synchronize()
-        assert sw_lab.launches_lab == before + 1
-        ahead = sw_groups_lab(*args, og, eg, variant, load_ahead=True)
-        assert sw_lab.launches_lab == before + 2
-        for want in (sw_groups_lab_ref(*args, og, eg, variant), ahead,
-                     sw_groups_ref(*args, og, eg), sw_groups(*args, og, eg)):
+    """Every built (strip rows, placement) of the variant: the kernel equals
+    sw_groups over tables that mix both roles (query lengths of one row, a
+    partial strip and many rounds of the pipeline) and its own tiled plain
+    version on a small mixed table."""
+    for rows, ahead in sorted((u, a) for v, u, a in BUILT if v == variant):
+        for shapes, long_from, m, matrix, og, eg in (
+                (MIXED_ROLES, LONG_FROM, 1, "blosum62", 0, 0),
+                (MIXED_ROLES, LONG_FROM, 65, "blosum62", 10, 2),
+                (MIXED_ROLES, LONG_FROM, 4 * rows * SETS + 9, "pam30", 7, 1),
+                (SMALL_ROLES, 40, 33, "blosum62", 11, 1)):
+            rng = np.random.default_rng(m + rows)
+            args = _inputs(rng, shapes, m, matrix, cuda)
+            work = work_table(args[1], long_from)
+            before = sw_lab.launches_lab
+            got = sw_groups_lab(*args, og, eg, variant, None, ahead, work,
+                                rows)
+            torch.cuda.synchronize()
+            assert sw_lab.launches_lab == before + 1
+            want = sw_groups(*args, og, eg, work=work)
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           want.cpu().numpy())
+            if shapes is SMALL_ROLES:
+                host = [a.cpu() for a in args]
+                tiled = sw_groups_lab_tiled_ref(
+                    *host, og, eg, variant, work=work_table(host[1], 40),
+                    strip_rows=rows)
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              tiled.numpy())
 
 
 def test_lab_kernel_long_query_and_scratch(cuda):
-    """A query beyond 48 KB of shared memory, with a caller's scratch."""
+    """Queries beyond 48 KB of shared memory (the rows stay in global
+    memory, strip by strip), with a caller's scratch: every built kernel
+    equals sw_groups."""
     rng = np.random.default_rng(21)
-    res, table, q, sm = _inputs(rng, [(1, 64), (1, 160)], 13000, "pam30",
-                                cuda)
-    scratch = torch.empty((2,) + tuple(res.shape), dtype=torch.int32,
-                          device=cuda)
-    want = sw_groups(res, table, q, sm, 7, 1, scratch)
-    for variant in VARIANTS:
-        for ahead in (False, True):
+    for shapes, m, matrix in (([(1, 64), (1, 160)], 13000, "pam30"),
+                              ([(1, 32)], 60000, "blosum62")):
+        res, table, q, sm = _inputs(rng, shapes, m, matrix, cuda)
+        scratch = torch.empty((2,) + tuple(res.shape), dtype=torch.int32,
+                              device=cuda)
+        want = sw_groups(res, table, q, sm, 7, 1, scratch)
+        for variant, rows, ahead in sorted(BUILT):
             got = sw_groups_lab(res, table, q, sm, 7, 1, variant, scratch,
-                                ahead)
+                                ahead, strip_rows=rows)
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           want.cpu().numpy())
 
 
 def test_lab_unknown_variant_and_refused_launch_raise(cuda):
+    """An unknown variant and a kernel that is not built raise before any
+    launch; a scratch the 16-byte copies cannot address is refused at the
+    launch, and the wrapper raises and counts no launch."""
     rng = np.random.default_rng(22)
     args = _inputs(rng, [(1, 32)], 5, "blosum62", cuda)
     before = sw_lab.launches_lab
     with pytest.raises(ValueError, match="unknown variant"):
         sw_groups_lab(*args, 10, 2, "fast")
-    args = _inputs(rng, [(1, 32)], 60000, "blosum62", cuda)
+    with pytest.raises(ValueError, match="ks@8 is not built"):
+        sw_groups_lab(*args, 10, 2, "ks", strip_rows=8)
     with pytest.raises(RuntimeError,
                        match="sw_groups_lab kernel launch failed"):
-        sw_groups_lab(*args, 10, 2, "ks")
+        sw_groups_lab(*args, 10, 2, "ks",
+                      _misaligned_scratch(args[0], cuda))
     assert sw_lab.launches_lab == before
 
 

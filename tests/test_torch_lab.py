@@ -1,19 +1,24 @@
 """oswald_tpu_torch.kernels.sw_lab against scripts/kernel_lab.py.
 
 `sw_groups_lab_ref` (what `sw_groups_lab` runs on a CPU tensor: plain
-PyTorch that carries out each variant's own algebra) is held, variant by
-variant, to the JAX lab kernel `sw_chunk_lab` chained over a bin by its
-`_scan_bin`, in interpret mode, on the shapes of the lab's own
-`check_parity`; `base` and `dpx`, whose recurrence is the shipping one, to
-the shipping `sw_chunk` chained the same way.  The same residues go to both
-sides: [G, C, 128, 8, 128] chunks for the JAX profile, [G * L, 8, 128]
-columns for the port.  Tolerance: exact int32.  The lab kernel has no tail
-chunks and no query lengths off its row quantum; the port's variants are
-also held to each other there.  The CUDA kernel is checked on a card by
-tests/test_torch_gpu.py and, at full size, by chip_smoke.py.
+PyTorch that carries out each variant's own algebra) and
+`sw_groups_lab_tiled_ref` (the same algebra by the kernel's decomposition:
+work items, strips dealt to the sets of a pipelined item, column tiles, the
+hand-over) are held, variant by variant, to the JAX lab kernel
+`sw_chunk_lab` chained over a bin by its `_scan_bin`, in interpret mode, on
+the shapes of the lab's own `check_parity`, at its own strip heights u;
+`base` and `dpx`, whose recurrence is the shipping one, to the shipping
+`sw_chunk` chained the same way.  The same residues go to both sides:
+[G, C, 128, 8, 128] chunks for the JAX profile, [G * L, 8, 128] columns for
+the port.  Tolerance: exact int32.  The lab kernel has no tail chunks and no
+query lengths off its row quantum; there the port's variants are held to
+the shipping plain version at the strip heights the kernel is built for.
+The CUDA kernel is checked on a card by tests/test_torch_gpu.py and, at
+full size, by chip_smoke.py.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -25,11 +30,13 @@ from oswald_tpu.alphabet import DUMMY
 from oswald_tpu.kernels import build_profile, sw_chunk
 from oswald_tpu.submat import get_submat
 from oswald_tpu_torch.kernels import sw_lab
-from oswald_tpu_torch.kernels.sw_lab import (VARIANTS, ptxas_report,
-                                             sw_groups_lab,
+from oswald_tpu_torch.kernels.sw_lab import (BUILT, VARIANTS, label,
+                                             ptxas_report, sw_groups_lab,
                                              sw_groups_lab_ref,
+                                             sw_groups_lab_tiled_ref,
                                              sw_lanes_lab_ref)
-from oswald_tpu_torch.kernels.sw_lanes import sw_groups_ref, sw_lanes_ref
+from oswald_tpu_torch.kernels.sw_lanes import (STRIP_ROWS, sw_groups_ref,
+                                               sw_lanes_ref, work_table)
 
 from conftest import random_protein
 
@@ -93,10 +100,19 @@ def test_variant_matches_jax_lab_kernel(kernel_lab, variant):
             want = kernel_lab._scan_bin(
                 kernel_lab.sw_chunk_lab, jnp.asarray(q), gaps, prof, u, gb,
                 jnp.int32, cu, interpret=True, variant=variant)
-        got = sw_groups_lab_ref(
-            *_torch_args(seq.reshape(G, L, 8, 128), q, sm), og, eg, variant)
+        args = _torch_args(seq.reshape(G, L, 8, 128), q, sm)
+        got = sw_groups_lab_ref(*args, og, eg, variant, strip_rows=u)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if L == 128:
+            # the decomposition on the first group, dealt out as rows (the
+            # pipelined role: test_tiled_lab_ref_matches_plain_version)
+            one = (args[0][:L], args[1][:1].contiguous(), *args[2:])
+            tiled = sw_groups_lab_tiled_ref(*one, og, eg, variant,
+                                            work=work_table(one[1], 1 << 30),
+                                            strip_rows=u)
+            np.testing.assert_array_equal(tiled.numpy(),
+                                          np.asarray(want)[:1])
 
 
 def _random_bin(rng, G, L):
@@ -109,19 +125,60 @@ def _random_bin(rng, G, L):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_variants_agree_on_tails_and_odd_lengths(variant):
     """Bins with 32/64/96-column tails and query lengths of one row, a
-    partial strip and two strips and a row: every variant gives the
-    shipping plain version's scores, under three scoring settings."""
+    partial strip and two strips and a row: every variant, at every strip
+    height it is built for, gives the shipping plain version's scores,
+    under three scoring settings."""
     cases = ((32, 1, "blosum62", 10, 2), (96, 9, "pam30", 7, 1),
              (160, 33, "blosum62", 0, 0), (64, 17, "blosum62", 11, 1))
+    kernels = sorted((u, a) for v, u, a in BUILT if v == variant)
     for L, m, matrix, og, eg in cases:
         rng = np.random.default_rng(L * 100 + m)
         args = _torch_args(_random_bin(rng, 1, L), random_protein(rng, m),
                            get_submat(matrix))
         want = sw_groups_ref(*args, og, eg)
         before = sw_lab.launches_lab
-        got = sw_groups_lab(*args, og, eg, variant)     # CPU: plain version
+        for u, ahead in kernels:
+            # CPU: the plain version
+            got = sw_groups_lab(*args, og, eg, variant, load_ahead=ahead,
+                                strip_rows=u)
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
         assert sw_lab.launches_lab == before
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _mixed_bins(rng):
+    """A table of three groups whose default work table deals the 44-column
+    one out as pipelined slabs and the others as rows when long_from is 40;
+    lengths below a tile, no multiple of it, and one tail each."""
+    bins = [_random_bin(rng, 1, L) for L in (5, 44, 27)]
+    res = torch.from_numpy(np.concatenate([b.reshape(-1, 8, 128)
+                                           for b in bins]))
+    table = torch.tensor([(0, 5), (5, 44), (49, 27)], dtype=torch.int32)
+    return res, table
+
+
+# every variant at every strip height the kernel knows, one query length
+# of 1 / 9 / 33 / 65 each in turn (one row, a partial strip, several
+# strips), the gaps of the JAX lab's checks
+TILED_CASES = [(v, u, (1, 9, 33, 65)[(i + j) % 4])
+               for i, v in enumerate(VARIANTS) for j, u in enumerate((8, 16,
+                                                                      32))]
+
+
+@pytest.mark.parametrize("variant,u,m", TILED_CASES)
+def test_tiled_lab_ref_matches_plain_version(variant, u, m):
+    """sw_groups_lab_tiled_ref, the kernel's decomposition with the
+    variant's column update, on a table that mixes rows and pipelined slabs:
+    the shipping plain version's scores, exact."""
+    rng = np.random.default_rng(m * 10 + u)
+    res, table = _mixed_bins(rng)
+    q = torch.from_numpy(random_protein(rng, m).astype(np.int32))
+    sm = torch.from_numpy(get_submat("blosum62").astype(np.int32))
+    og, eg = (10, 2) if variant == "noadj" else (11, 1)
+    want = sw_groups_ref(res, table, q, sm, og, eg)
+    got = sw_groups_lab_tiled_ref(res, table, q, sm, og, eg, variant,
+                                  work=work_table(table, 40), strip_rows=u)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_mixed_table_and_subtable():
@@ -187,17 +244,49 @@ def test_wrong_inputs_rejected():
 
 def test_ptxas_report_names_variants():
     log = ("ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_20"
-           "sw_groups_lab_kernelILi4ELb1EEEvPKa' for 'sm_90a'\n"
+           "sw_groups_lab_kernelILi16ELi4ELb1EEEvPKa' for 'sm_90a'\n"
            "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
            "loads\n"
            "ptxas info    : Used 96 registers, used 1 barriers\n"
            "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_20"
-           "sw_groups_lab_kernelILi0ELb0EEEvPKa' for 'sm_90a'\n"
+           "sw_groups_lab_kernelILi32ELi0ELb0EEEvPKa' for 'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
            "loads\n"
-           "ptxas info    : Used 80 registers, used 1 barriers\n")
+           "ptxas info    : Used 80 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_20"
+           "sw_groups_kernelILi16EEEvPKa' for 'sm_90a'\n"
+           "ptxas info    : Used 120 registers, used 1 barriers\n")
     assert ptxas_report(log) == {
-        "ks+ahead": "96 registers, 8 bytes spill stores, 4 bytes spill "
-                    "loads",
-        "base": "80 registers, 0 bytes spill stores, 0 bytes spill loads"}
+        "ks@16+ahead": "96 registers, 8 bytes spill stores, 4 bytes spill "
+                       "loads",
+        "base@32": "80 registers, 0 bytes spill stores, 0 bytes spill loads"}
     assert ptxas_report(None) == {}
+
+
+def test_built_kernels_and_labels():
+    """Every variant in both placements at the engine's strip height, base
+    and dpx ahead at half and twice it; the C entry dispatches on the same
+    strip heights; a kernel that is not built is refused on every device
+    before anything runs, naming what is built."""
+    assert len(BUILT) == 18
+    assert {(v, a) for v, u, a in BUILT if u == STRIP_ROWS} == \
+        {(v, a) for v in VARIANTS for a in (False, True)}
+    assert {(v, u) for v, u, a in BUILT if u != STRIP_ROWS} == \
+        {(v, u) for v in ("base", "dpx") for u in (8, 32)}
+    assert label("dpx", 32, True) == "dpx@32+ahead"
+    assert label("pre") == "pre@16"
+    src = (REPO / "oswald_tpu_torch/kernels/csrc/sw_groups_lab.cu").read_text()
+    for u in {u for _, u, _ in BUILT}:
+        assert f"SW_LAB_LAUNCH({u}, " in src or f"rows == {u}" in src
+    rng = np.random.default_rng(9)
+    args = _torch_args(_random_bin(rng, 1, 32), random_protein(rng, 5),
+                       get_submat("blosum62"))
+    before = sw_lab.launches_lab
+    for variant, u, ahead in (("ks", 8, True), ("fscan", 32, True),
+                              ("base", 8, False), ("base", 12, True)):
+        with pytest.raises(ValueError,
+                           match=re.escape(f"{label(variant, u, ahead)} "
+                                           "is not built")):
+            sw_groups_lab(*args, 10, 2, variant, load_ahead=ahead,
+                          strip_rows=u)
+    assert sw_lab.launches_lab == before
