@@ -2,9 +2,10 @@
 """Smoke run of oswald_tpu_torch on one CUDA card: python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an H100 (compute
-capability 9.0), the CUDA toolkit and PyTorch built for CUDA.  It builds the
-port's kernels from the checkout's sources (into build/oswald_tpu_torch/,
-one nvcc per source, all started together), then:
+capability 9.0), the CUDA toolkit and PyTorch built for CUDA.  It points the
+kernel cache (oswald_tpu_torch.utils.compile_cache) at the checkout's
+build/oswald_tpu_torch/ and builds the port's kernels there from the
+checkout's sources (one nvcc per source, all started together), then:
 
 1. probe: PyTorch, CUDA, nvcc, compute capability, Triton, and the card's
    name and power limit;
@@ -67,7 +68,31 @@ one nvcc per source, all started together), then:
    and the serial schedule stand beside the resident engine's, with setup
    seconds, each engine's peak device memory beside the planner's
    estimate, and where a host_stream search's time goes (kernels alone
-   slice by slice, the sweep, the host's top-k and moments).
+   slice by slice, the sweep, the host's top-k and moments);
+9. serving, on phase 2's resident engine: the kernel directory is packed
+   into a tarball (utils.compile_cache.pack_cache) and unpacked into a fresh
+   directory, the build pointed there, and SearchEngine.warmup(512) must
+   load both engine kernels from it without running nvcc (its seconds are
+   printed).  A SearchService behind make_server on an ephemeral port
+   answers: the 512-residue query, 20 times from one client (per-request
+   latency p50/p95/p99 and requests per second, the first request after
+   warmup beside them); the same query with "align": true (the planted
+   homolog first with E < 1e-3, every hit's alignment rescored with the
+   matrix and gaps equal to its score; the host time of a 10-hit traceback
+   printed); the 20 mixed queries of phase 6 as requests of 1-3 queries
+   from 8 client threads, each response equal to the same queries searched
+   one by one (scores, ids and titles exact, E-values at rtol 1e-4), with
+   /healthz counting every request and query in fewer dispatches than
+   requests (the micro-batcher coalesced); /info naming the card; and the
+   mixed queries one a request from 8 clients at once (latency and
+   throughput).  One search of the 512-residue query under
+   utils.metrics.profile_trace: the Chrome trace must name sw_groups_kernel;
+   its summed device time and that of all device work are printed beside
+   the search's wall time under the profiler.  Both kernels' launches are
+   counted over the phase up to here and must be non-zero.  Last,
+   tune.autotune(iters=1): every candidate's Gcells/s and the winner are
+   printed, and every candidate's checksum must equal the shipped
+   geometry's.
 
 One call of a kernel's wrapper is one launch, whatever roles its work table
 mixes, so the launch counts are those of the calls.  The probe prints the
@@ -89,10 +114,15 @@ synchronising readback) for searches.
 
 import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -116,6 +146,10 @@ REPLACES_LAB = "scripts/kernel_lab.py:176"
 # times A B B A, their median times agree within SAME_CODE_RTOL
 SAME_CODE_ROUNDS = 4
 SAME_CODE_RTOL = 0.03
+# phase 9: client threads, and the single-client latency run's requests
+SERVE_CLIENTS = 8
+SERVE_SINGLE_REQUESTS = 20
+CHECKOUT_BUILD = Path(__file__).resolve().parent / "build" / "oswald_tpu_torch"
 
 
 def say(msg=""):
@@ -860,8 +894,287 @@ def host_stream_path(db, engine, queries, mixed, card, resident_peak):
     return total
 
 
+def _post(base, payload):
+    req = urllib.request.Request(
+        base + "/search", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _get(base, path):
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def rescore_alignment(aln, submat, og, eg):
+    """The score of a served alignment, from its aligned rows."""
+    from oswald_tpu_torch.alphabet import encode
+    score, in_gap = 0, False
+    qa = encode(aln["q_aln"].replace("-", "*"))
+    sa = encode(aln["s_aln"].replace("-", "*"))
+    for qc, sc, qg, sg in zip(qa, sa, aln["q_aln"], aln["s_aln"]):
+        if qg == "-" or sg == "-":
+            score -= eg + (0 if in_gap else og)
+            in_gap = True
+        else:
+            score += int(submat[qc, sc])
+            in_gap = False
+    return score
+
+
+def latency_line(label, lat, wall, residues, card):
+    """Print per-request percentiles and rates; returns the p50 in ms."""
+    p = np.percentile(np.asarray(lat) * 1e3, [50, 95, 99])
+    say(f"serve {label}: {len(lat)} requests, p50 {p[0]:.2f} ms, p95 "
+        f"{p[1]:.2f} ms, p99 {p[2]:.2f} ms, {len(lat) / wall:.2f} requests/s"
+        f", {residues / wall:.0f} query residues/s [{card}]")
+    return p[0]
+
+
+def cache_round_trip(engine, tmp, card):
+    """Phase 9, first part: the kernel directory packed, unpacked into a
+    fresh one and the build pointed there; warmup must run no nvcc."""
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.utils import compile_cache
+    tar = os.path.join(tmp, "kernels.tar.gz")
+    packed = compile_cache.pack_cache(tar)
+    fresh = os.path.join(tmp, "kernels")
+    unpacked = compile_cache.unpack_cache(tar, fresh)
+    say(f"kernel cache: packed {packed['entries']} files "
+        f"({packed['bytes'] / 1e6:.1f} MB) of {compile_cache.current_dir()}, "
+        f"unpacked {unpacked['extracted']} into a fresh directory")
+    compile_cache.enable_compile_cache(fresh, quiet=True)
+    # the loaded-library table is keyed by directory: nothing loaded from
+    # the checkout's build is reused below
+    build.build_logs.clear()
+    t0 = time.perf_counter()
+    loaded = engine.warmup(Q_LONG, log=say)
+    warm_s = time.perf_counter() - t0
+    if build.build_logs:
+        raise AssertionError("warmup from the unpacked cache ran nvcc")
+    for name in ("sw_groups", "sw_groups_packed"):
+        if name not in loaded or \
+                build.library_path(name).parent != Path(fresh) or \
+                (name, build.BLOCKS_PER_SM, Path(fresh)) not in build._libs:
+            raise AssertionError(f"warmup did not load {name} from the "
+                                 f"unpacked directory: {loaded}")
+    say(f"warmup from the unpacked cache: {warm_s:.3f} s, no nvcc [{card}]")
+
+
+def serve_requests(db, engine, q_long, mixed, card):
+    """Phase 9, the server: the requests and checks the module describes."""
+    from oswald_tpu_torch.alphabet import decode
+    from oswald_tpu_torch.serve import SearchService, make_server
+    cfg = engine.config
+    service = SearchService(db, engine)
+    httpd = make_server(service, port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        # one client, the 512-residue query without alignments: the first
+        # request after warmup, then the steady state.  The client's first
+        # urlopen builds urllib's opener (tens of ms, an ssl context), so a
+        # /healthz comes first: the times are the server's
+        _get(base, "/healthz")
+        lat = []
+        t_all = time.perf_counter()
+        for _ in range(SERVE_SINGLE_REQUESTS):
+            t0 = time.perf_counter()
+            _post(base, {"query": decode(q_long)})
+            lat.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t_all
+        p50 = latency_line(f"1 client, m={Q_LONG}", lat, wall,
+                           Q_LONG * len(lat), card)
+        say(f"serve: first request after warmup {lat[0] * 1e3:.2f} ms, "
+            f"{100 * (lat[0] * 1e3 / p50 - 1):+.1f}% against the p50 "
+            f"[{card}]")
+
+        # the planted query with alignments
+        t0 = time.perf_counter()
+        out = _post(base, {"query": decode(q_long), "align": True})
+        a_ms = (time.perf_counter() - t0) * 1e3
+        hits = out["results"][0]["hits"]
+        if hits[0]["title"] != "planted_0" or not hits[0]["evalue"] < 1e-3:
+            raise AssertionError(f"served align: planted homolog not first "
+                                 f"with E < 1e-3: {hits[0]['title']} "
+                                 f"E={hits[0]['evalue']}")
+        for h in hits:
+            got = rescore_alignment(h["alignment"], engine.submat,
+                                    cfg.open_gap, cfg.extend_gap)
+            if got != h["score"]:
+                raise AssertionError(f"served align: {h['title']} rescores "
+                                     f"{got}, hit score {h['score']}")
+        res = engine.search(q_long)
+        t0 = time.perf_counter()
+        engine.align(q_long, res)
+        tb_ms = (time.perf_counter() - t0) * 1e3
+        say(f"serve align: {len(hits)} hits, each alignment rescored equal "
+            f"to its score; request {a_ms:.1f} ms (p50 without {p50:.1f}); "
+            f"traceback of {len(res.scores)} hits at m={Q_LONG} "
+            f"{tb_ms:.1f} ms on the host [{card}]")
+
+        # the mixed queries as requests of 1, 2, 3, 1, ... queries from
+        # 8 clients at once, held to the same queries searched one by one
+        titles = [f"mixed{i}" for i in range(len(mixed))]
+        singles = [engine.search(q, t) for q, t in zip(mixed, titles)]
+        spans, lo = [], 0
+        while lo < len(mixed):
+            spans.append((lo, min(lo + 1 + len(spans) % 3, len(mixed))))
+            lo = spans[-1][1]
+        todo, answers, errors = list(spans), {}, []
+        lock = threading.Lock()
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    a, b = todo.pop()
+                try:
+                    answers[a, b] = _post(base, {
+                        "queries": [decode(q) for q in mixed[a:b]],
+                        "titles": titles[a:b]})
+                except Exception as e:          # noqa: BLE001 - reported
+                    errors.append(f"{a}:{b}: {e!r}")
+
+        h0 = _get(base, "/healthz")
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(answers) != len(spans):
+            raise AssertionError(f"served batch: {len(answers)} of "
+                                 f"{len(spans)} answered; {errors[:3]}")
+        for (a, b), out in answers.items():
+            for i, got in zip(range(a, b), out["results"]):
+                want, hits = singles[i], got["hits"]
+                if got["query"] != titles[i] or \
+                        [h["score"] for h in hits] != want.scores.tolist() \
+                        or [h["id"] for h in hits] != want.seq_ids.tolist() \
+                        or [h["title"] for h in hits] != want.titles:
+                    raise AssertionError(f"served query {i} differs from its "
+                                         f"single search")
+                if not np.allclose([h["evalue"] for h in hits],
+                                   want.evalues, rtol=1e-4, atol=0):
+                    raise AssertionError(f"served query {i}: E-values beyond "
+                                         f"rtol 1e-4")
+        h1 = _get(base, "/healthz")
+        d_req = h1["requests"] - h0["requests"]
+        d_q = h1["queries"] - h0["queries"]
+        d_disp = h1["dispatches"] - h0["dispatches"]
+        if (d_req, d_q) != (len(spans), len(mixed)) or not d_disp < d_req:
+            raise AssertionError(
+                f"/healthz: {d_req} requests, {d_q} queries, {d_disp} "
+                f"dispatches for {len(spans)} requests of {len(mixed)} "
+                f"queries (fewer dispatches than requests: coalesced)")
+        say(f"serve: {len(spans)} requests of 1-3 mixed queries from "
+            f"{SERVE_CLIENTS} clients in {d_disp} dispatches, each equal to "
+            f"its queries searched one by one")
+        info = _get(base, "/info")
+        if info["backend"] != "cuda" or \
+                torch.cuda.get_device_name(0) not in info["devices"][0]:
+            raise AssertionError(f"/info does not name the card: {info}")
+
+        # 8 clients, one mixed query a request
+        lat, lat_lock = [], threading.Lock()
+
+        def one_by_one():
+            for q in mixed:
+                t0 = time.perf_counter()
+                _post(base, {"query": decode(q)})
+                with lat_lock:
+                    lat.append(time.perf_counter() - t0)
+
+        h0 = _get(base, "/healthz")
+        threads = [threading.Thread(target=one_by_one)
+                   for _ in range(SERVE_CLIENTS)]
+        t_all = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t_all
+        h1 = _get(base, "/healthz")
+        if len(lat) != SERVE_CLIENTS * len(mixed):
+            raise AssertionError(f"{SERVE_CLIENTS} clients: {len(lat)} of "
+                                 f"{SERVE_CLIENTS * len(mixed)} answered")
+        latency_line(f"{SERVE_CLIENTS} clients, mixed {MIXED_LO}-{MIXED_HI}",
+                     lat, wall, SERVE_CLIENTS * sum(len(q) for q in mixed),
+                     card)
+        say(f"serve: {h1['requests'] - h0['requests']} requests in "
+            f"{h1['dispatches'] - h0['dispatches']} dispatches; /healthz "
+            f"{json.dumps(h1)} [{card}]")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+        server.join(timeout=60)
+
+
+def traced_search(engine, q_long, tmp, card):
+    """Phase 9: one search under profile_trace; the trace must name
+    sw_groups_kernel."""
+    from oswald_tpu_torch.utils.metrics import profile_trace
+    trace_dir = os.path.join(tmp, "trace")
+    torch.cuda.synchronize()
+    with profile_trace(trace_dir) as prof:
+        t0 = time.perf_counter()
+        engine.search(q_long)                  # ends with its readback
+        window_ms = (time.perf_counter() - t0) * 1e3
+    files = os.listdir(trace_dir)
+    if len(files) != 1:
+        raise AssertionError(f"profile_trace wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        if "sw_groups_kernel" not in f.read():
+            raise AssertionError("the trace does not name sw_groups_kernel")
+    # the card's own events (kernels, copies), each once
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern_ms = sum(e.time_range.elapsed_us() for e in dev
+                  if "sw_groups_kernel" in e.name) / 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    if not kern_ms:
+        raise AssertionError("the profiler timed no sw_groups_kernel")
+    say(f"trace: sw_groups_kernel {kern_ms:.2f} ms, all device work "
+        f"{busy_ms:.2f} ms, of a {window_ms:.2f} ms search under the "
+        f"profiler ({100 * kern_ms / window_ms:.1f}% and "
+        f"{100 * busy_ms / window_ms:.1f}%) [{card}]")
+
+
+def serving(db, engine, q_long, mixed, card):
+    """Phase 9.  Returns {kernel: launches} of its searches: warmup, the
+    served requests and the traced search."""
+    from oswald_tpu_torch.kernels import sw_lanes
+    from oswald_tpu_torch.tune import autotune
+    from oswald_tpu_torch.utils.compile_cache import enable_compile_cache
+    sw_lanes.launches = sw_lanes.launches_packed = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_round_trip(engine, tmp, card)
+        serve_requests(db, engine, q_long, mixed, card)
+        traced_search(engine, q_long, tmp, card)
+        launched = {"sw_groups": sw_lanes.launches,
+                    "sw_groups_packed": sw_lanes.launches_packed}
+        if not all(launched.values()):
+            raise AssertionError(f"phase 9 launched {launched}")
+        t0 = time.perf_counter()
+        out = autotune(iters=1, log=say)
+        bad = [r for r in out["results"] if "error" in r]
+        if bad:
+            raise AssertionError(f"tune disqualified {bad}")
+        say(f"tune: best --blocks-per-sm {out['blocks_per_sm']} --long-from "
+            f"{out['long_from']} ({out['gcells']} Gcells/s) of "
+            f"{len(out['results'])} candidates, checksums equal, "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    enable_compile_cache(str(CHECKOUT_BUILD), quiet=True)
+    return launched
+
+
 def run(device, n_seqs, card, seed=SEED):
-    """Phases 2-8 on `device` (`card` labels the times); returns the
+    """Phases 2-9 on `device` (`card` labels the times); returns the
     kernels record."""
     from oswald_tpu_torch.engine import SearchConfig, SearchEngine
     from oswald_tpu_torch.io.synth import realistic_residues
@@ -921,18 +1234,20 @@ def run(device, n_seqs, card, seed=SEED):
         f"{lab_all[fastest]:.2f} ms [{card}]")
     hs_launches = host_stream_path(db, engine, queries, mixed, card,
                                    resident_peak)
+    serve_launches = serving(db, engine, q_long, mixed, card)
     common = {"route": "cuda", "library_ms": None}
     return {"kernels": [
         {"name": "sw_groups", "source": SOURCES["sw_groups"],
          "replaces": REPLACES,
          "launches": launches + batch_launches["sw_groups"] +
-         hs_launches["sw_groups"],
+         hs_launches["sw_groups"] + serve_launches["sw_groups"],
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": b_ms, "bound_by": b_by, **common},
         {"name": "sw_groups_packed", "source": SOURCES["sw_groups_packed"],
          "replaces": REPLACES,
          "launches": batch_launches["sw_groups_packed"] +
-         hs_launches["sw_groups_packed"],
+         hs_launches["sw_groups_packed"] +
+         serve_launches["sw_groups_packed"],
          "max_abs_err": perr, "ms": pk_ms, "plain_ms": pp_ms,
          "bound_ms": pb_ms, "bound_by": pb_by, **common},
         # the lab kernel does sw_groups' work on sw_groups' inputs: phase
@@ -958,6 +1273,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from oswald_tpu_torch.utils.compile_cache import enable_compile_cache
+    enable_compile_cache(str(CHECKOUT_BUILD))
     smi = probe()
     say(smi)
     record = run(torch.device("cuda", 0), N_SEQS, smi)

@@ -1,18 +1,24 @@
-"""Command-line interface of the port: search | info.
+"""Command-line interface of the port: search | serve | info | tune | cache.
 
 `search` takes the flags of oswald_tpu's `search` (the reference's -q -d -s
 -g -e -r surface and the engine flags) plus `--device`, and prints the same
-text report and `--json` lines.  `--profile-mode` picks where the database
+text report, `--json` lines, `--tab` lines, alignment blocks (`--align`)
+and score histograms (`-H`).  `--profile-mode` picks where the database
 lives (auto, precompute and stream: resident on the device; host_stream:
 on the host, streamed through the device on every search), and
 `--hbm-budget-mb` is the device memory that `auto` plans for; the engine
-announces an `auto` plan on stderr, so `--json` output stays clean.  Flags
-whose paths are not ported yet exit 2 with a "not yet ported" error; the
-rest of oswald_tpu's subcommands (preprocess, serve, tune, cache) are not
-ported yet either.  The `.oswt`
-databases are those both packages read: `oswald_tpu_torch.io.preprocess_db`
-or `python -m oswald_tpu.cli preprocess` writes them.  A multi-query FASTA
-runs as one batch (packed launches) unless --no-batch is given.
+announces an `auto` plan on stderr, so `--json` output stays clean.
+`--trace DIR` writes a torch.profiler trace of the search into DIR.
+`serve` keeps one warm engine behind the HTTP JSON API of
+`oswald_tpu_torch.serve`; `tune` measures the kernels' geometry on the card
+and prints the `--blocks-per-sm`/`--long-from` flags to pass to `search`
+and `serve`; `cache` packs, unpacks and reports the directory the kernel
+libraries are built into (`--compile-cache DIR`, `--no-compile-cache`).
+`--distributed` and `--devices` > 1 exit 2 with a "not yet ported" error,
+and `preprocess` is not ported yet.  The `.oswt` databases are those both
+packages read: `oswald_tpu_torch.io.preprocess_db` or `python -m
+oswald_tpu.cli preprocess` writes them.  A multi-query FASTA runs as one
+batch (packed launches) unless --no-batch is given.
 """
 
 import argparse
@@ -37,7 +43,27 @@ def _user_errors():
         raise _CLIError(str(e)) from e
 
 
+def _add_device_arg(sp):
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda; cpu "
+                         "runs the plain PyTorch scorer)")
+
+
+def _add_cache_args(sp):
+    sp.add_argument("--compile-cache", metavar="DIR", default=None,
+                    help="directory of the compiled kernel libraries "
+                         "(default: $OSWALD_TPU_TORCH_COMPILE_CACHE, else "
+                         "~/.cache/oswald-tpu-torch/kernels); a library "
+                         "built once is loaded by later processes instead "
+                         "of running nvcc again")
+    sp.add_argument("--no-compile-cache", action="store_true",
+                    help="build the kernel libraries into a temporary "
+                         "directory of this process, removed at exit")
+
+
 def _add_engine_args(sp):
+    """Flags shared by `search` and `serve`: everything that shapes the
+    engine rather than a single query run."""
     sp.add_argument("-d", "--db", required=True,
                     help="preprocessed database path (.oswt)")
     sp.add_argument("-s", "--sm", default="blosum62",
@@ -49,9 +75,7 @@ def _add_engine_args(sp):
                     help="gap extend penalty (default: 2)")
     sp.add_argument("-r", "--top", type=int, default=10,
                     help="number of scores to show (default: 10)")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device to search on (default: cuda; cpu "
-                         "runs the plain PyTorch scorer)")
+    _add_device_arg(sp)
     sp.add_argument("--devices", type=int, default=None,
                     help="devices in the search (only 1 is ported)")
     sp.add_argument("--distributed", action="store_true",
@@ -71,11 +95,14 @@ def _add_engine_args(sp):
                          "plans for (default: the device's own)")
     sp.add_argument("--max-query-len", type=int, default=5478,
                     help="longest accepted query (default: 5478)")
-    sp.add_argument("--compile-cache", metavar="DIR", default=None,
-                    help="accepted for compatibility (kernels build into "
-                         "build/oswald_tpu_torch/)")
-    sp.add_argument("--no-compile-cache", action="store_true",
-                    help="accepted for compatibility")
+    _add_cache_args(sp)
+    sp.add_argument("--blocks-per-sm", type=int, default=None,
+                    help="blocks per SM the kernels are built for (kernel "
+                         "geometry, see `tune`; default: 4)")
+    sp.add_argument("--long-from", type=int, default=None,
+                    help="groups of this many columns or more run as "
+                         "pipelined slabs (kernel geometry, see `tune`; "
+                         "default: 1024)")
     sp.add_argument("--u-rows", type=int, default=8,
                     help="row quantum of the batch packing plan "
                          "(default: 8)")
@@ -95,18 +122,28 @@ def _add_search_args(sp):
                          "launch, instead of packing them into batched "
                          "launches")
     sp.add_argument("--trace", metavar="DIR", default=None,
-                    help="device trace (not yet ported)")
+                    help="write a torch.profiler trace of the search (the "
+                         "CPU, and the card's kernels) into DIR as a "
+                         "Chrome trace (view in Perfetto)")
     sp.add_argument("--metrics", action="store_true",
                     help="print phase timing metrics after the report")
     sp.add_argument("--json", action="store_true",
                     help="machine-readable output: one JSON object per "
                          "query plus a run summary")
     sp.add_argument("-a", "--align", action="store_true",
-                    help="alignments of the hits (not yet ported)")
+                    help="print a gapped alignment (traceback) for every "
+                         "reported hit — a host-side pass over the top-k "
+                         "only")
     sp.add_argument("--tab", action="store_true",
-                    help="BLAST tabular output (not yet ported)")
+                    help="BLAST outfmt-6 tabular output (qseqid sseqid "
+                         "pident length mismatch gapopen qstart qend "
+                         "sstart send evalue bitscore), one line per hit "
+                         "— computes alignments, replaces the text report")
     sp.add_argument("-H", "--histogram", action="store_true",
-                    help="score histogram (not yet ported)")
+                    help="print the observed score histogram per query "
+                         "with the expected chance counts under the "
+                         "fitted null model (text mode; scores the "
+                         "database once more per query)")
 
 
 def build_parser():
@@ -117,35 +154,104 @@ def build_parser():
     sub = p.add_subparsers(dest="op", required=True)
     sp = sub.add_parser("search", help="search a packed database")
     _add_search_args(sp)
+
+    sv = sub.add_parser(
+        "serve",
+        help="HTTP JSON search server over a warm engine (the kernels, "
+             "the CUDA context and the database stay resident across "
+             "queries)")
+    _add_engine_args(sv)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8731)
+    sv.add_argument("--warmup-qlen", type=int, default=512,
+                    help="before accepting requests, load the kernel "
+                         "libraries and run a search and a packed batch of "
+                         "queries this long (0 = skip; default: 512)")
+    sv.add_argument("--warmup-jobs", type=int, default=1,
+                    help="accepted for compatibility with oswald-tpu "
+                         "(the port's warmup has no parallel steps)")
+
     sub.add_parser("info", help="PyTorch and CUDA device information")
+
+    tn = sub.add_parser(
+        "tune",
+        help="measure kernel-geometry candidates (blocks per SM, the "
+             "long-role threshold) on the card and print the fastest "
+             "--blocks-per-sm/--long-from flags")
+    tn.add_argument("--m", type=int, default=512,
+                    help="query rows of the synthetic workload")
+    tn.add_argument("--groups", type=int, default=96,
+                    help="groups of 1024 subjects (at least 66 to fill "
+                         "an H100 at 4 blocks per SM)")
+    tn.add_argument("--chunks", type=int, default=32,
+                    help="group lengths run 128, 256, ..., 128 * CHUNKS "
+                         "columns")
+    tn.add_argument("--iters", type=int, default=3)
+    tn.add_argument("--json", action="store_true",
+                    help="print the full result object as JSON")
+    _add_device_arg(tn)
+    _add_cache_args(tn)
+
+    ca = sub.add_parser(
+        "cache",
+        help="manage the kernel library directory (pack a warmed one into "
+             "a shippable tarball / pre-seed a fresh deployment from one)")
+    ca.add_argument("action", choices=("pack", "unpack", "info"),
+                    help="pack: kernel directory -> tar.gz; unpack: tar.gz "
+                         "-> kernel directory (existing entries kept); "
+                         "info: entry count and size")
+    ca.add_argument("tar", nargs="?", default=None,
+                    help="tarball path (required for pack/unpack)")
+    ca.add_argument("--overwrite", action="store_true",
+                    help="unpack: replace existing entries")
+    _add_cache_args(ca)
     return p
+
+
+def _enable_cache(args):
+    from oswald_tpu_torch.utils import compile_cache
+    if getattr(args, "no_compile_cache", False):
+        compile_cache.disable_compile_cache()
+        return None
+    return compile_cache.enable_compile_cache(
+        getattr(args, "compile_cache", None))
 
 
 def _not_ported(args):
     """The first flag given whose path this port does not have yet."""
-    for flag, given in (("--align", args.align), ("--tab", args.tab),
-                        ("-H/--histogram", args.histogram),
-                        ("--trace", args.trace is not None),
-                        ("--distributed", args.distributed),
+    for flag, given in (("--distributed", args.distributed),
                         ("--devices > 1", (args.devices or 1) > 1)):
         if given:
             return flag
     return None
 
 
-def cmd_search(args):
+def _device(args):
+    """The torch device of --device, refused (exit 2) where it cannot run."""
+    import torch
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as e:
+        raise ValueError(f"bad --device {args.device!r}: {e}") from e
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError("CUDA is not available; pass --device cpu to run "
+                         "on the CPU")
+    return device
+
+
+def _build_engine(args):
+    """Engine construction shared by `search` and `serve`: validate the
+    flags, point the kernel build at its directory and geometry, load the
+    database, build the engine.  Returns (db, engine, setup_s)."""
     flag = _not_ported(args)
     if flag:
         raise _CLIError(f"{flag} is not yet ported")
-    import torch
-    from oswald_tpu_torch.io.db import load_db, load_queries
-    from oswald_tpu_torch.stats import format_evalue
-    from oswald_tpu_torch.submat import get_submat
-    from oswald_tpu_torch.utils.metrics import gcups as _gcups
     from oswald_tpu_torch.engine import SearchEngine, SearchConfig
+    from oswald_tpu_torch.io.db import load_db
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.submat import get_submat
 
     with _user_errors():
-        queries_titles, queries = load_queries(args.query)
         get_submat(args.sm)
         cfg = SearchConfig(matrix=args.sm, open_gap=args.gap_open,
                            extend_gap=args.gap_extend, top=args.top,
@@ -157,40 +263,91 @@ def cmd_search(args):
                            max_query_len=args.max_query_len,
                            hbm_budget_bytes=args.hbm_budget_mb << 20
                            if args.hbm_budget_mb else None)
-        try:
-            device = torch.device(args.device)
-        except RuntimeError as e:
-            raise ValueError(f"bad --device {args.device!r}: {e}") from e
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise ValueError("CUDA is not available; pass --device cpu to "
-                             "search on the CPU")
-        for t, q in zip(queries_titles, queries):
-            if len(q) > cfg.max_query_len:
-                raise ValueError(
-                    f"query '{t}' length {len(q)} exceeds --max-query-len "
-                    f"{cfg.max_query_len} (raise the flag to accept longer "
-                    f"queries)")
+        device = _device(args)
+        if args.blocks_per_sm is not None and args.blocks_per_sm < 1:
+            raise ValueError(f"--blocks-per-sm must be >= 1, got "
+                             f"{args.blocks_per_sm}")
+        if args.long_from is not None and args.long_from < 0:
+            raise ValueError(f"--long-from must be >= 0, got "
+                             f"{args.long_from}")
+        _enable_cache(args)
+        if args.blocks_per_sm is not None:
+            # before any library loads: the value is a build flag
+            build.BLOCKS_PER_SM = args.blocks_per_sm
         t_setup = time.perf_counter()
         db = load_db(args.db)
-    engine = SearchEngine(db, cfg, device=device)
-    setup_s = time.perf_counter() - t_setup
+    engine = SearchEngine(db, cfg, device=device, long_from=args.long_from)
+    return db, engine, time.perf_counter() - t_setup
 
+
+def _alignment_json(a):
+    return {"q_start": a.q_start, "q_end": a.q_end,
+            "s_start": a.s_start, "s_end": a.s_end,
+            "q_aln": a.q_aln, "s_aln": a.s_aln,
+            "midline": a.midline, "identities": a.identities,
+            "positives": a.positives, "gaps": a.gaps}
+
+
+def cmd_search(args):
+    import torch
+    from oswald_tpu_torch.io.db import load_queries
+    from oswald_tpu_torch.stats import format_evalue
+    from oswald_tpu_torch.utils.metrics import gcups as _gcups
+
+    with _user_errors():
+        queries_titles, queries = load_queries(args.query)
+        # over-cap queries are user input: refuse them before device work
+        for t, q in zip(queries_titles, queries):
+            if len(q) > args.max_query_len:
+                raise ValueError(
+                    f"query '{t}' length {len(q)} exceeds --max-query-len "
+                    f"{args.max_query_len} (raise the flag to accept longer "
+                    f"queries)")
+    db, engine, setup_s = _build_engine(args)
+    device = engine.device
+
+    trace_ctx = contextlib.nullcontext()
+    if args.trace:
+        from oswald_tpu_torch.utils.metrics import profile_trace
+        trace_ctx = profile_trace(args.trace)
     t0 = time.perf_counter()
-    results = engine.search_many(queries, queries_titles,
-                                 batch=not args.no_batch)
+    with trace_ctx:
+        results = engine.search_many(queries, queries_titles,
+                                     batch=not args.no_batch)
     search_s = time.perf_counter() - t0
     Q = sum(len(q) for q in queries)
     gcups = _gcups(Q, db.n_residues, search_s)
 
+    alignments = None
+    if args.align or args.tab:
+        # engine.align scores with the engine's own matrix and gaps
+        alignments = [engine.align(q, res)
+                      for q, res in zip(queries, results)]
+
+    if args.tab:
+        from oswald_tpu_torch.engine.align import format_tabular
+        for qi, res in enumerate(results):
+            for hi, (title, aln) in enumerate(zip(res.titles,
+                                                  alignments[qi])):
+                ev = float(res.evalues[hi]) if res.evalues is not None \
+                    else None
+                bs = float(res.bit_scores[hi]) if res.bit_scores is not \
+                    None else None
+                print(format_tabular(res.query_title, title, aln, ev, bs))
+        return 0
+
     if args.json:
         import json
-        for res in results:
+        for qi, res in enumerate(results):
             hits = [{"score": int(s), "id": int(i), "title": t}
                     for s, i, t in zip(res.scores, res.seq_ids, res.titles)]
             if res.evalues is not None:
                 for h, e, b in zip(hits, res.evalues, res.bit_scores):
                     h["evalue"] = float(e)
                     h["bits"] = round(float(b), 1)
+            if alignments is not None:
+                for h, a in zip(hits, alignments[qi]):
+                    h["alignment"] = _alignment_json(a)
             print(json.dumps({"query": res.query_title,
                               "length": res.query_length, "hits": hits}))
         print(json.dumps({
@@ -219,6 +376,21 @@ def cmd_search(args):
             print("\nScore\tSequence description")
             for sc, title in zip(res.scores, res.titles):
                 print(f"{int(sc)}\t{title}")
+        if args.histogram:
+            from oswald_tpu_torch.stats import histogram_report
+            try:
+                flat = engine.score_all(queries[i]).cpu().numpy()
+            except ValueError as e:
+                print(f"\n(--histogram: {e})", file=sys.stderr)
+            else:
+                print("\n" + histogram_report(
+                    flat[engine.ids_flat >= 0], res.stats,
+                    engine._len_hist), end="")
+        if alignments is not None:
+            from oswald_tpu_torch.engine.align import format_alignment
+            for title, aln in zip(res.titles, alignments[i]):
+                print(f"\n> {title}\n Score: {aln.score}")
+                print(format_alignment(aln), end="")
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"\nSearch date:\t\t\t{time.ctime()}")
@@ -238,26 +410,83 @@ def cmd_search(args):
     return 0
 
 
+def cmd_serve(args):
+    from oswald_tpu_torch.serve import serve_forever
+    db, engine, setup_s = _build_engine(args)
+    print(f"engine ready in {setup_s:.2f}s")
+    return serve_forever(db, engine, args.host, args.port,
+                         warmup_qlen=args.warmup_qlen or None,
+                         warmup_jobs=args.warmup_jobs)
+
+
 def cmd_info(args):
     import torch
+    from oswald_tpu_torch.utils.compile_cache import cache_stats
     print(f"PyTorch {torch.__version__}, CUDA {torch.version.cuda}")
     if not torch.cuda.is_available():
         print("Devices (0 total): CUDA is not available")
-        return 0
-    n = torch.cuda.device_count()
-    print(f"Devices ({n} total):")
-    for i in range(n):
-        p = torch.cuda.get_device_properties(i)
-        print(f"  [{i}] {p.name} (compute capability {p.major}.{p.minor}, "
-              f"{p.multi_processor_count} SMs, "
-              f"{p.total_memory / 2**30:.1f} GiB)")
+    else:
+        n = torch.cuda.device_count()
+        print(f"Devices ({n} total):")
+        for i in range(n):
+            p = torch.cuda.get_device_properties(i)
+            print(f"  [{i}] {p.name} (compute capability "
+                  f"{p.major}.{p.minor}, {p.multi_processor_count} SMs, "
+                  f"{p.total_memory / 2**30:.1f} GiB)")
+    st = cache_stats()
+    print(f"Kernel cache:\t{st['dir']} ({st['entries']} kernel libraries, "
+          f"{st['bytes'] / 2**20:.1f} MiB)")
+    return 0
+
+
+def cmd_tune(args):
+    import json
+    from oswald_tpu_torch.tune import autotune
+    with _user_errors():
+        device = _device(args)
+        _enable_cache(args)
+        out = autotune(m=args.m, groups=args.groups, chunks=args.chunks,
+                       iters=args.iters, device=device,
+                       log=lambda s: print(s, file=sys.stderr))
+    if args.json:
+        print(json.dumps(out))
+    else:
+        print(f"best geometry on {out['device']}: "
+              f"--blocks-per-sm {out['blocks_per_sm']} "
+              f"--long-from {out['long_from']} ({out['gcells']} Gcells/s)")
+    return 0
+
+
+def cmd_cache(args):
+    from oswald_tpu_torch.utils.compile_cache import (cache_stats,
+                                                      pack_cache,
+                                                      unpack_cache)
+    d = getattr(args, "compile_cache", None)
+    with _user_errors():
+        if args.action == "info":
+            st = cache_stats(d)
+            print(f"kernel cache: {st['dir']} ({st['entries']} kernel "
+                  f"libraries, {st['bytes'] / 2**20:.1f} MiB)")
+            return 0
+        if not args.tar:
+            raise ValueError(f"cache {args.action} requires a tarball "
+                             "path argument")
+        if args.action == "pack":
+            out = pack_cache(args.tar, d)
+            print(f"packed {out['entries']} kernel libraries "
+                  f"({out['bytes'] / 2**20:.1f} MiB) -> {out['tar']}")
+        else:
+            out = unpack_cache(args.tar, d, overwrite=args.overwrite)
+            print(f"unpacked {out['extracted']} kernel libraries into "
+                  f"{out['dir']} ({out['skipped']} already present)")
     return 0
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     try:
-        return {"search": cmd_search, "info": cmd_info}[args.op](args)
+        return {"search": cmd_search, "serve": cmd_serve, "info": cmd_info,
+                "tune": cmd_tune, "cache": cmd_cache}[args.op](args)
     except _CLIError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 2

@@ -393,13 +393,15 @@ class SearchEngine:
     """Searches one packed database with a fixed matrix and gap setting on
     one device.  device=None means CUDA and raises when there is none; CPU
     runs pass device="cpu" and score with the plain PyTorch version.
+    long_from is the kernels' long-role threshold (`kernels.sw_lanes.
+    work_table`; None: the shipped LONG_FROM), which `tune` measures.
     `mode` is the resolved profile_mode: "precompute" or "stream" (the
     database resident on the device: `state`, `valid`, `lnl`, `scratch`) or
     "host_stream" (those four are None; `_hs_slices`, `ids_flat` and
     `lnl_flat` describe the same slots from the host)."""
 
     def __init__(self, db: PackedDB, config: SearchConfig = None,
-                 device=None):
+                 device=None, long_from: int = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -412,6 +414,7 @@ class SearchEngine:
                                "requested but CUDA is not available")
         self.db = db
         self.config = config or SearchConfig()
+        self.long_from = long_from
         self.submat = get_submat(self.config.matrix)
         self.metrics = Metrics()
         cuda = self.device.type == "cuda"
@@ -435,7 +438,7 @@ class SearchEngine:
         if self.mode == "host_stream":
             self._init_host_stream()
         else:
-            self.state = to_device(db, self.device)
+            self.state = to_device(db, self.device, long_from)
             self.ids_flat = self.state.ids_flat
             self.valid = self.state.valid
             self.lnl = self.state.lnl
@@ -459,7 +462,7 @@ class SearchEngine:
         stream for the copies.  At most two slices and one scratch are ever
         on the device."""
         hs = to_host_stream(self.db, self.device,
-                            self.config.host_stream_slice_mb)
+                            self.config.host_stream_slice_mb, self.long_from)
         self._hs_slices = hs.slices
         self.ids_flat = hs.ids_flat
         self.lnl_flat = hs.lnl_flat
@@ -693,6 +696,64 @@ class SearchEngine:
             return [self._finish(p) for p in grp]
         big = stacked.cpu().numpy()              # the one window readback
         return [self._finish(p, big[i]) for i, p in enumerate(grp)]
+
+    def warmup(self, max_query_len: int = 512, batch: bool = True,
+               log=None, jobs: int = 1):
+        """Make the first real request pay for nothing but its search.
+
+        On a card: build (nvcc, where the kernel directory has no build of
+        these sources yet) and load both engine kernel libraries, then run
+        one search of a query of min(max_query_len, max_query_len of the
+        config) DUMMY residues and, with `batch`, one search_many of two
+        such queries (at most half of batch_query_pack_rows each, so that
+        they pack), which launches sw_groups_packed.  That pays for the
+        CUDA context, the modules' load and the allocator's growth.  On the
+        CPU the same searches run the plain versions once at that size.
+
+        Deliberately unlike oswald_tpu's warmup, which compiles one XLA
+        program per padded query length and returns those lengths: the
+        kernels here take any length, so there is nothing per length to
+        compile.  Returns the names of the kernel libraries loaded ([] on
+        the CPU).  `log` gets one line per step; the seconds are added to
+        metrics under "warmup".  `jobs` is accepted and ignored: the
+        reference runs its steps in a thread pool against a remote compile
+        service; here nvcc already builds the libraries in parallel.
+        """
+        from oswald_tpu_torch.kernels import build
+        t0 = time.perf_counter()
+
+        def say(msg):
+            if log:
+                log(f"warmup [{time.perf_counter() - t0:5.1f}s] {msg}")
+
+        m = max(1, min(max_query_len, self.config.max_query_len))
+        loaded = []
+        if self.device.type == "cuda":
+            names = ["sw_groups", "sw_groups_packed"]
+            say(f"kernel libraries {', '.join(names)} in {build.build_dir()}")
+            build.build_all(names)
+            for name in names:
+                build.load(name)
+            loaded = names
+        say(f"one search of {m} residues")
+        self.search(np.full(m, DUMMY, np.int8))
+        if batch:
+            mb = max(1, min(m, self.config.batch_query_pack_rows // 2))
+            say(f"one batch of two queries of {mb} residues")
+            q = np.full(mb, DUMMY, np.int8)
+            self.search_many([q, q])
+        # both searches ended with their readback: the card is idle
+        self.metrics.add("warmup", time.perf_counter() - t0)
+        say("done")
+        return loaded
+
+    def align(self, query, result: SearchResult):
+        """Gapped alignments (traceback) of a SearchResult's hits: a host
+        pass over the k reported sequences (engine/align.py), the same in
+        every mode.  It touches no device state.  Returns [Alignment]."""
+        from oswald_tpu_torch.engine.align import align_hits
+        return align_hits(self.db, query, result, self.submat,
+                          self.config.open_gap, self.config.extend_gap)
 
     def search_many(self, queries, titles=None, batch: bool = True):
         """Search a list of queries.  With batch=True (default) queries are

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from oswald_tpu_torch.io.db import PackedDB, SUBLANES, LANES, db_len_stats
-from oswald_tpu_torch.kernels.sw_lanes import WorkTable, work_table
+from oswald_tpu_torch.kernels.sw_lanes import (WorkTable, fill_long_from,
+                                               work_table)
 
 
 @dataclasses.dataclass
@@ -48,7 +49,18 @@ def _slot_vectors(db: PackedDB, id_parts):
     return ids_flat, lnl_flat
 
 
-def to_device(db: PackedDB, device) -> DeviceDB:
+def _work_table(groups, host, long_from):
+    """The launch order of a group table: the default one (kept on the
+    tensor) for long_from None, else groups of long_from columns or more
+    pipelined, by the same rule of filling the card."""
+    if long_from is None:
+        return work_table(groups, host=host)
+    return work_table(groups, fill_long_from(len(host), long_from), host)
+
+
+def to_device(db: PackedDB, device, long_from: int = None) -> DeviceDB:
+    """The resident state of `db` on `device`; long_from: the work
+    table's long-role threshold (None: sw_lanes.LONG_FROM)."""
     device = torch.device(device)
     n_cols = sum(int(db.bins[L]["seq"].shape[0]) * L
                  for L in db.bin_lengths)
@@ -71,7 +83,7 @@ def to_device(db: PackedDB, device) -> DeviceDB:
     return DeviceDB(
         residues=residues,
         groups=groups,
-        work=work_table(groups, host=host),
+        work=_work_table(groups, host, long_from),
         ids_flat=ids_flat,
         valid=torch.from_numpy(ids_flat >= 0).to(device),
         lnl=torch.from_numpy(lnl_flat).to(device))
@@ -119,12 +131,14 @@ def slice_budget_bytes(total_bytes: int, slice_mb: int) -> int:
     return max(budget, min(conf, 16 << 20))
 
 
-def to_host_stream(db: PackedDB, device, slice_mb: int) -> HostStreamDB:
+def to_host_stream(db: PackedDB, device, slice_mb: int,
+                   long_from: int = None) -> HostStreamDB:
     """Cut the whole database into slices of at most the slice budget.
     A slice holds spans (L, lo, take), windows of whole groups of one bin,
     and may cross bin boundaries; a group larger than the budget is a
     one-span slice of its own.  Only each slice's group table and work table go to
-    the device here; the residues stay where the database keeps them."""
+    the device here; the residues stay where the database keeps them.
+    long_from is the work tables' long-role threshold, as for to_device."""
     device = torch.device(device)
     lanes = SUBLANES * LANES
     total = sum(int(db.bins[L]["seq"].shape[0]) * L * lanes
@@ -139,7 +153,7 @@ def to_host_stream(db: PackedDB, device, slice_mb: int) -> HostStreamDB:
             host = torch.tensor(table, dtype=torch.int32).reshape(-1, 2)
             groups = host.to(device)
             slices.append(HostSlice(spans, cols, slot, groups,
-                                    work_table(groups, host=host)))
+                                    _work_table(groups, host, long_from)))
             slot += len(table) * lanes
             spans, table, cols = [], [], 0
 

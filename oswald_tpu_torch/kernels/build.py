@@ -2,8 +2,9 @@
 
 Each kernel is one `csrc/<name>.cu` file with a plain C interface (no
 PyTorch headers, so nvcc takes seconds); the `csrc/*.cuh` headers are
-shared by all of them.  The shared library goes to
-`build/oswald_tpu_torch/` at the repository root, named after a hash of the
+shared by all of them.  The shared library goes to `build_dir()`, the
+kernel cache directory of `oswald_tpu_torch.utils.compile_cache` (the user's
+cache directory unless another was enabled), named after a hash of the
 sources and flags, so an edited source builds anew and an unchanged one is
 reused by later processes.  Nothing here runs at import time.
 """
@@ -17,8 +18,9 @@ import tempfile
 import threading
 from pathlib import Path
 
+from oswald_tpu_torch.utils import compile_cache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "oswald_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the measurement stands beside kBlocksPerSm in csrc/sw_tile.cuh
@@ -45,6 +47,8 @@ SIGNATURES = {
     },
 }
 
+# loaded libraries by (name, blocks per SM, directory): a directory enabled
+# later loads its own copies
 _libs = {}
 _lock = threading.Lock()
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
@@ -76,12 +80,18 @@ def _sources(name: str):
     return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
 
 
+def build_dir() -> Path:
+    """The directory the libraries are built into and loaded from: the one
+    compile_cache enabled, else its default."""
+    return Path(compile_cache.current_dir())
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str, out: Path) -> str:
@@ -122,7 +132,7 @@ def build_all(names=None):
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if this source has no build."""
     with _lock:
-        key = (name, int(BLOCKS_PER_SM))
+        key = (name, int(BLOCKS_PER_SM), build_dir())
         lib = _libs.get(key)
         if lib is not None:
             return lib

@@ -64,11 +64,30 @@ SLABS_PER_GROUP = ROWS_PER_GROUP * SETS     # 32-lane slabs of a group
 # 55.0 ms from 1024 on, 54.8 from 4096 on (packed 2 x 512: 101.0 against
 # 121.3) and 76.9 ms with no group pipelined (packed: 190.8).
 LONG_FROM = 1024
-# a table of fewer row items than an H100 holds blocks (132 SMs, the blocks
-# per SM the kernels are built for) leaves it partly idle, so all of its
-# groups are pipelined: four times the blocks, each with a quarter of the
-# critical path
-CARD_BLOCKS = 132 * build.BLOCKS_PER_SM
+
+
+def card_blocks() -> int:
+    """The blocks an H100 holds at once: 132 SMs times the blocks per SM
+    the kernels are built for (`build.BLOCKS_PER_SM`, read now: a tuner or
+    a flag may change it before the first library loads)."""
+    return 132 * build.BLOCKS_PER_SM
+
+
+def __getattr__(name):
+    # CARD_BLOCKS is card_blocks() at the time it is read
+    if name == "CARD_BLOCKS":
+        return card_blocks()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def fill_long_from(n_groups: int, long_from: int = LONG_FROM) -> int:
+    """The long-role threshold for a table of n_groups: `long_from` when
+    its rows fill the card (card_blocks() row items or more), else 0.  A
+    table of fewer row items leaves the card partly idle, so all of its
+    groups are pipelined: four times the blocks, each with a quarter of the
+    critical path."""
+    return long_from if ROWS_PER_GROUP * n_groups >= card_blocks() else 0
+
 
 # kernel launches made by sw_groups in this process (the wrapper adds one
 # per launch and nowhere else; callers reset it to count a run's launches)
@@ -178,10 +197,10 @@ def work_table(groups, long_from: int = None, host=None) -> WorkTable:
     A group of fewer than `long_from` columns gives 8 items, part = its
     128-lane row 0..7, each of cost 4 L; a longer one 32 items, part = 8 +
     its 32-lane slab 0..31, each of cost L (four warps share the strips of
-    one slab).  By default `long_from` is LONG_FROM for a table whose rows
-    fill the card (CARD_BLOCKS items or more) and 0 for a smaller one: a
-    single group, or a small slice of a streamed database, is pipelined
-    whatever its length.  The cost of an item is its block's
+    one slab).  By default `long_from` is `fill_long_from(G)`: LONG_FROM for
+    a table whose rows fill the card and 0 for a smaller one, so a single
+    group, or a small slice of a streamed database, is pipelined whatever
+    its length.  The cost of an item is its block's
     critical path in columns per strip, the same for every query, so one
     table serves both kernels and every launch on `groups`.
 
@@ -200,7 +219,7 @@ def work_table(groups, long_from: int = None, host=None) -> WorkTable:
     L = table.reshape(-1, 2)[:, 1].astype(np.int64)
     default = long_from is None
     if default:
-        long_from = LONG_FROM if ROWS_PER_GROUP * len(L) >= CARD_BLOCKS else 0
+        long_from = fill_long_from(len(L))
     is_long = L >= long_from
     n_parts = np.where(is_long, SLABS_PER_GROUP, ROWS_PER_GROUP)
     g = np.repeat(np.arange(len(L)), n_parts)

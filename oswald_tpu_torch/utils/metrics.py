@@ -1,11 +1,15 @@
-"""Timing and GCUPS accounting.
+"""Timing, GCUPS accounting and the profiler.
 
 - `Metrics`: named phase wall-timers (engine_setup / search / search_batch
-  ...) with counts, totals, and a report.
+  / warmup ...) with counts, totals, and a report.
 - `gcups`: the throughput metric, Q * D / (t * 1e9) over true residues.
+- `profile_trace`: a torch.profiler trace of the enclosed block, written as
+  a Chrome trace (viewable in Perfetto or chrome://tracing).
 """
 
 import contextlib
+import itertools
+import os
 import time
 from collections import defaultdict
 
@@ -60,3 +64,25 @@ class Metrics:
     def as_dict(self) -> dict:
         return {k: {"total_s": self._totals[k], "count": self._counts[k]}
                 for k in self._totals}
+
+
+_traces = itertools.count()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Profile the enclosed block with torch.profiler: the CPU activity,
+    plus the CUDA activity (every kernel on the card, whoever launched it)
+    where a card is present.  On exit the trace is written into log_dir
+    (created) as trace.<pid>.<n>.json.  Yields the profiler, whose
+    key_averages() sums time by kernel once the block has ended."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace.{os.getpid()}.{next(_traces)}.json"))

@@ -14,6 +14,7 @@ may differ by that step.
 """
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +35,19 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def own_kernel_cache(tmp_path, monkeypatch):
+    """Every CLI run enables a kernel cache directory: keep it under the
+    test's own tmp_path, and the process-wide choice, and the blocks per SM
+    a flag may set, as they were."""
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.utils import compile_cache
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    monkeypatch.delenv("OSWALD_TPU_TORCH_COMPILE_CACHE", raising=False)
+    monkeypatch.setattr(compile_cache, "_enabled_dir", None)
+    monkeypatch.setattr(build, "BLOCKS_PER_SM", build.BLOCKS_PER_SM)
 
 
 @pytest.fixture(scope="module")
@@ -98,17 +112,14 @@ def test_search_text_report(fasta_db, capsys):
     assert "engine_setup" in out and "search" in out
 
 
-@pytest.mark.parametrize("flags,name", [
-    (["--align"], "--align"),
-    (["--tab"], "--tab"),
-    (["-H"], "-H/--histogram"),
-    (["--trace", "tr"], "--trace"),
-    (["--distributed"], "--distributed"),
-    (["--devices", "2"], "--devices > 1"),
+@pytest.mark.parametrize("verb,flags,name", [
+    ("search", ["--distributed"], "--distributed"),
+    ("search", ["--devices", "2"], "--devices > 1"),
+    ("serve", ["--distributed"], "--distributed"),
 ])
-def test_unported_flags_exit_2(fasta_db, capsys, flags, name):
-    assert main(["search", "-q", str(fasta_db / "q.fasta"),
-                 "-d", str(fasta_db / "db"), "--device", "cpu",
+def test_unported_flags_exit_2(fasta_db, capsys, verb, flags, name):
+    query = ["-q", str(fasta_db / "q.fasta")] if verb == "search" else []
+    assert main([verb, *query, "-d", str(fasta_db / "db"), "--device", "cpu",
                  *flags]) == 2
     err = capsys.readouterr().err
     assert err.startswith(f"oswald-tpu-torch: error: {name} is not yet "
@@ -267,3 +278,295 @@ def test_help_describes_memory_modes(capsys):
     assert "that --profile-mode auto plans for" in out
     assert "host_stream is not yet ported" not in out
     assert "no memory planner" not in out
+
+
+def _search_args(fasta_db, *extra):
+    return ["search", "-q", str(fasta_db / "q.fasta"),
+            "-d", str(fasta_db / "db"), "-r", "4", *extra]
+
+
+def _jax_and_port(fasta_db, capsys, *extra):
+    """(JAX CLI stdout, port CLI stdout) of the same search."""
+    assert jax_main(_search_args(fasta_db, *extra) +
+                    ["--devices", "1", "--no-compile-cache"]) == 0
+    want = capsys.readouterr().out
+    assert main(_search_args(fasta_db, *extra) + ["--device", "cpu"]) == 0
+    return want, capsys.readouterr().out
+
+
+def test_tab_matches_jax_cli(fasta_db, capsys):
+    """--tab prints the JAX CLI's BLAST outfmt-6 lines: every field equal,
+    the E-value and bit score at the module's tolerance."""
+    want, got = _jax_and_port(fasta_db, capsys, "--tab")
+    want = [line.split("\t") for line in want.strip().splitlines()]
+    got = [line.split("\t") for line in got.strip().splitlines()]
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert len(g) == 12 and g[:10] == w[:10]
+        np.testing.assert_allclose(np.log(float(g[10])),
+                                   np.log(float(w[10])), rtol=1e-5,
+                                   atol=1e-4 + 0.05)
+        assert abs(float(g[11]) - float(w[11])) <= 0.1 + 1e-9
+    assert got[0][:2] == ["qa", "dbseq7"] and float(got[0][2]) == 100.0
+
+
+def test_json_align_matches_jax_cli(fasta_db, capsys):
+    want, got = _jax_and_port(fasta_db, capsys, "--json", "--align")
+    want, _ = _json_lines(want)
+    got, _ = _json_lines(got)
+    assert _hits(got) == _hits(want)
+    for g, w in zip(got, want):
+        assert [h["alignment"] for h in g["hits"]] == \
+            [h["alignment"] for h in w["hits"]]
+        np.testing.assert_allclose(np.log([h["evalue"] for h in g["hits"]]),
+                                   np.log([h["evalue"] for h in w["hits"]]),
+                                   rtol=1e-5, atol=1e-4)
+    top = got[0]["hits"][0]["alignment"]
+    assert top["identities"] == got[0]["length"]
+    assert top["q_aln"] == top["s_aln"]
+
+
+def _blocks(out, start):
+    """The lines of each block that begins with a line starting `start`,
+    up to the next blank line."""
+    blocks, cur = [], None
+    for line in out.splitlines():
+        if line.startswith(start):
+            cur = [line]
+            blocks.append(cur)
+        elif cur is not None:
+            if not line.strip():
+                cur = None
+            else:
+                cur.append(line)
+    return blocks
+
+
+def test_align_text_matches_jax_cli(fasta_db, capsys):
+    """--align prints the JAX CLI's alignment blocks, character for
+    character, after the same hit tables."""
+    want, got = _jax_and_port(fasta_db, capsys, "--align")
+    assert _blocks(got, "> ") == _blocks(want, "> ")
+    assert got.count("Identities:") == 8
+    assert "> dbseq7 test protein 7" in got
+
+
+def test_histogram_matches_jax_cli(fasta_db, capsys):
+    """-H prints the JAX CLI's histogram per query: the same buckets and
+    observed counts, expected counts within one printed step."""
+    want, got = _jax_and_port(fasta_db, capsys, "-H")
+    gh, wh = _blocks(got, " score  obs"), _blocks(want, " score  obs")
+    assert len(gh) == len(wh) == 2
+    for g, w in zip(gh, wh):
+        assert len(g) == len(w)
+        for gl, wl in zip(g[1:-1], w[1:-1]):
+            assert gl.split()[:2] == wl.split()[:2]
+            assert abs(float(gl.split()[2]) - float(wl.split()[2])) <= \
+                0.1 + 1e-9
+        assert g[-1].split()[:3] == w[-1].split()[:3]      # obs N seqs
+
+
+def test_trace_writes_chrome_trace(fasta_db, tmp_path, capsys):
+    """--trace DIR leaves a Chrome trace in DIR (created) and the report
+    unchanged."""
+    def table(extra):
+        assert main(_search_args(fasta_db, "--device", "cpu", *extra)) == 0
+        return [line for line in capsys.readouterr().out.splitlines()
+                if line[:1].isdigit() and "\t" in line]
+
+    want = table([])
+    trace = tmp_path / "trace" / "here"
+    assert table(["--trace", str(trace)]) == want
+    files = list(trace.iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json"
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_geometry_flags_reach_build_and_engine(fasta_db, capsys,
+                                               monkeypatch):
+    """--blocks-per-sm sets the build's blocks per SM before any library
+    loads, --long-from the engine's work tables; the hits do not move."""
+    from oswald_tpu_torch.engine import search
+    from oswald_tpu_torch.kernels import build
+    seen = []
+    real = search.SearchEngine.__init__
+
+    def spy(self, *a, **k):
+        real(self, *a, **k)
+        seen.append((build.BLOCKS_PER_SM, self.long_from))
+
+    monkeypatch.setattr(search.SearchEngine, "__init__", spy)
+    want = _search_args(fasta_db, "--json", "--device", "cpu")
+    assert main(want) == 0
+    default = _hits(_json_lines(capsys.readouterr().out)[0])
+    assert main(want + ["--blocks-per-sm", "3", "--long-from", "64"]) == 0
+    assert _hits(_json_lines(capsys.readouterr().out)[0]) == default
+    assert seen == [(4, None), (3, 64)]
+    for bad in (["--blocks-per-sm", "0"], ["--long-from", "-1"]):
+        assert main(want + bad) == 2
+        assert capsys.readouterr().err.startswith("oswald-tpu-torch: error:")
+
+
+def test_compile_cache_flags(fasta_db, tmp_path, capsys):
+    """--compile-cache DIR points the kernel build at DIR;
+    --no-compile-cache at a temporary directory of the process."""
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.utils import compile_cache
+    args = _search_args(fasta_db, "--json", "--device", "cpu")
+    assert main(args + ["--compile-cache", str(tmp_path / "kc")]) == 0
+    assert build.build_dir() == tmp_path / "kc" and (tmp_path / "kc").is_dir()
+    assert main(args + ["--no-compile-cache"]) == 0
+    assert build.build_dir() == Path(compile_cache._temp_dir)
+    assert main(args) == 0
+    assert build.build_dir() == tmp_path / "xdg" / "oswald-tpu-torch" / \
+        "kernels"
+
+
+def test_cache_pack_unpack_info(tmp_path, capsys):
+    """`cache pack` archives a kernel directory into one tarball and `cache
+    unpack` pre-seeds a fresh one from it; existing entries are kept unless
+    --overwrite (tests/test_cli.py's cache test, for kernel libraries)."""
+    src = tmp_path / "cache"
+    (src / "sub").mkdir(parents=True)
+    (src / "a.so").write_bytes(b"AAAA")
+    (src / "sub" / "b.so").write_bytes(b"BB")
+    tar = str(tmp_path / "warm.tar.gz")
+    assert main(["cache", "pack", tar, "--compile-cache", str(src)]) == 0
+    assert "packed 2 kernel libraries" in capsys.readouterr().out
+    dst = tmp_path / "fresh"
+    assert main(["cache", "unpack", tar, "--compile-cache", str(dst)]) == 0
+    assert (dst / "a.so").read_bytes() == b"AAAA"
+    assert (dst / "sub" / "b.so").read_bytes() == b"BB"
+    assert "unpacked 2 kernel libraries" in capsys.readouterr().out
+    (dst / "a.so").write_bytes(b"kept")
+    assert main(["cache", "unpack", tar, "--compile-cache", str(dst)]) == 0
+    assert "(2 already present)" in capsys.readouterr().out
+    assert (dst / "a.so").read_bytes() == b"kept"
+    assert main(["cache", "unpack", tar, "--compile-cache", str(dst),
+                 "--overwrite"]) == 0
+    assert (dst / "a.so").read_bytes() == b"AAAA"
+    assert not list(dst.rglob("*.part"))
+    capsys.readouterr()
+    assert main(["cache", "info", "--compile-cache", str(dst)]) == 0
+    assert "2 kernel libraries" in capsys.readouterr().out
+    assert main(["cache", "pack", "--compile-cache", str(src)]) == 2
+    assert main(["cache", "pack", tar,
+                 "--compile-cache", str(tmp_path / "nope")]) == 2
+    assert main(["info"]) == 0
+    assert "Kernel cache:\t" in capsys.readouterr().out
+
+
+def test_cache_unpack_rejects_path_escape(tmp_path):
+    """A cache tarball with ../ members is refused, not written outside the
+    directory."""
+    import io
+    import tarfile
+    from oswald_tpu_torch.utils.compile_cache import unpack_cache
+    tar = tmp_path / "evil.tar.gz"
+    with tarfile.open(tar, "w:gz") as tf:
+        data = b"pwned"
+        info = tarfile.TarInfo("../escape.so")
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+    with pytest.raises(ValueError, match="unsafe path"):
+        unpack_cache(str(tar), str(tmp_path / "cache"))
+    assert not (tmp_path / "escape.so").exists()
+
+
+def test_tune_parser_and_cli(capsys, monkeypatch):
+    import oswald_tpu_torch.tune as tune
+    from oswald_tpu_torch.cli.main import build_parser
+    args = build_parser().parse_args(["tune"])
+    assert (args.m, args.groups, args.chunks, args.iters, args.device) == \
+        (512, 96, 32, 3, "cuda")
+    monkeypatch.setattr(tune, "BLOCKS_PER_SM_AXIS", (4,))
+    monkeypatch.setattr(tune, "LONG_FROM_AXIS", (1024,))
+    assert main(["tune", "--m", "8", "--groups", "1", "--chunks", "1",
+                 "--iters", "1", "--device", "cpu", "--no-compile-cache"]) \
+        == 0
+    out = capsys.readouterr()
+    assert out.out.startswith("best geometry on cpu: --blocks-per-sm 4 "
+                              "--long-from 1024 (")
+    assert "tuning on cpu" in out.err
+    assert main(["tune", "--m", "8", "--groups", "1", "--chunks", "1",
+                 "--iters", "1", "--device", "cpu", "--json"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert set(res) == {"blocks_per_sm", "long_from", "gcells", "device",
+                        "results"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["tune"]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_autotune_tiny(monkeypatch):
+    """The coordinate descent runs end to end on the CPU (narrowed axes,
+    the plain version), measures the shipped geometry, restores the build's
+    blocks per SM, and disqualifies a candidate whose checksum differs."""
+    import oswald_tpu_torch.tune as tune
+    from oswald_tpu_torch.kernels import build
+    monkeypatch.setattr(tune, "BLOCKS_PER_SM_AXIS", (3, 4))
+    monkeypatch.setattr(tune, "LONG_FROM_AXIS", (512, 1024))
+    real = tune._measure
+    seen = []
+
+    def measure(w, bps, lf, iters):
+        seen.append((bps, lf, build.BLOCKS_PER_SM))
+        gc, checksum = real(w, bps, lf, iters)
+        return gc, checksum + (bps == 3)          # 3 blocks: miscompiled
+
+    monkeypatch.setattr(tune, "_measure", measure)
+    lines = []
+    out = tune.autotune(m=16, groups=2, chunks=2, iters=1, log=lines.append,
+                        device="cpu")
+    assert build.BLOCKS_PER_SM == 4
+    assert [s[:2] for s in seen] == [(4, 1024), (3, 1024), (4, 512)]
+    assert all(bps == current for bps, _, current in seen)
+    by = {(r["blocks_per_sm"], r["long_from"]): r for r in out["results"]}
+    assert by[3, 1024] == {"blocks_per_sm": 3, "long_from": 1024,
+                           "gcells": 0.0, "error": "checksum"}
+    assert "error" not in by[4, 1024] and by[4, 1024]["gcells"] > 0
+    assert out["blocks_per_sm"] == 4 and out["device"] == "cpu"
+    assert any("CHECKSUM MISMATCH" in line for line in lines)
+    # a candidate that cannot launch scores 0 and is recorded; with no
+    # candidate left the tune raises
+    monkeypatch.setattr(tune, "_measure", lambda *a: 1 / 0)
+    with pytest.raises(RuntimeError, match="no tuning candidate"):
+        tune.autotune(m=16, groups=2, chunks=2, iters=1, device="cpu")
+
+
+def test_autotune_refuses_a_workload_that_cannot_fill_the_card(monkeypatch):
+    import oswald_tpu_torch.tune as tune
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="long_from would measure nothing"):
+        tune.autotune(groups=65, device="cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tune.autotune()
+
+
+def test_serve_verb_builds_the_engine(fasta_db, capsys, monkeypatch):
+    """`serve` builds the engine of `search` (the same flags) and hands it
+    to serve_forever with the host, port and warmup flags."""
+    from oswald_tpu_torch import serve
+    got = {}
+
+    def fake(db, engine, host, port, warmup_qlen, warmup_jobs):
+        got.update(db=db, engine=engine, host=host, port=port,
+                   warmup_qlen=warmup_qlen, warmup_jobs=warmup_jobs)
+        return 0
+
+    monkeypatch.setattr(serve, "serve_forever", fake)
+    assert main(["serve", "-d", str(fasta_db / "db"), "--device", "cpu",
+                 "-r", "3", "--port", "0", "--warmup-qlen", "0",
+                 "--long-from", "256", "--profile-mode", "host_stream"]) == 0
+    assert capsys.readouterr().out.startswith("engine ready in ")
+    eng = got["engine"]
+    assert (got["host"], got["port"], got["warmup_qlen"]) == \
+        ("127.0.0.1", 0, None)
+    assert eng.device.type == "cpu" and eng.config.top == 3
+    assert eng.mode == "host_stream" and eng.long_from == 256
+    assert got["db"].n_seqs == 80
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["serve", "-d", str(fasta_db / "db")]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err

@@ -271,3 +271,32 @@ def test_batched_topk_equals_per_query_topk(engines):
         np.testing.assert_array_equal(bs, s)
         np.testing.assert_array_equal(bslot, slot)
         np.testing.assert_allclose(bm, m, rtol=1e-6)
+
+
+def test_warmup_on_cpu(engines):
+    """warmup on the CPU loads no kernel library, runs the plain versions
+    once (a search and a packed batch), logs each step, adds its seconds to
+    the metrics and leaves search results unchanged."""
+    _, _, eng = engines
+    q = random_protein(np.random.default_rng(13), 40)
+    before = eng.search(q)
+    lines = []
+    n_batch = eng.metrics.count("search_batch")
+    assert eng.warmup(48, log=lines.append, jobs=4) == []
+    assert [line.split("] ", 1)[1] for line in lines] == [
+        "one search of 48 residues",
+        "one batch of two queries of 48 residues", "done"]
+    assert all(line.startswith("warmup [") for line in lines)
+    assert eng.metrics.count("warmup") == 1
+    assert eng.metrics.total("warmup") > 0
+    assert eng.metrics.count("search_batch") == n_batch + 1
+    after = eng.search(q)
+    _assert_same_hits(before, after)
+    np.testing.assert_array_equal(before.evalues, after.evalues)
+    # never past the engine's cap; no batch when asked for none
+    lines.clear()
+    small = SearchEngine(eng.db, SearchConfig(top=TOP, max_query_len=20),
+                         device="cpu")
+    assert small.warmup(512, batch=False, log=lines.append) == []
+    assert [line.split("] ", 1)[1] for line in lines] == [
+        "one search of 20 residues", "done"]

@@ -1,6 +1,9 @@
 """oswald_tpu_torch on a CUDA card: the sw_groups, sw_groups_packed and
 sw_groups_lab kernels against their plain versions, and the CUDA engine,
-resident and host_stream, against the CPU engine (tolerance: exact).
+resident and host_stream, against the CPU engine (tolerance: exact); the
+engine's warmup (both kernel libraries built once into the enabled kernel
+directory), a SearchService over the card's engine, and tune at a tiny
+size.
 
 Every test is marked `gpu` and skips without a card.  The file imports
 neither jax, nor oswald_tpu, nor the test conftest (which imports jax), so
@@ -540,3 +543,73 @@ def test_cuda_auto_mode_plans_from_the_card(cuda, capsys):
     got = eng.search(q)
     np.testing.assert_array_equal(want.scores, got.scores)
     np.testing.assert_array_equal(want.seq_ids, got.seq_ids)
+
+
+def _small_db(rng, n=3000):
+    lengths = rng.integers(1, 300, size=n)
+    seqs = [_protein(rng, int(k)) for k in lengths]
+    return pack_sequences(np.concatenate(seqs), lengths,
+                          [f"s{i}" for i in range(n)]), seqs
+
+
+def test_warmup_loads_engine_libraries_once(cuda, tmp_path, monkeypatch):
+    """warmup builds and loads both engine kernels into the enabled
+    directory; a second warmup in the same process builds nothing."""
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.utils import compile_cache
+    monkeypatch.setattr(compile_cache, "_enabled_dir", None)
+    compile_cache.enable_compile_cache(str(tmp_path / "kernels"), quiet=True)
+    db, _ = _small_db(np.random.default_rng(30))
+    eng = SearchEngine(db, SearchConfig())
+    build.build_logs.clear()
+    before = (sw_lanes.launches, sw_lanes.launches_packed)
+    lines = []
+    assert eng.warmup(64, log=lines.append) == ["sw_groups",
+                                                 "sw_groups_packed"]
+    assert {"sw_groups", "sw_groups_packed"} <= set(build.build_logs)
+    assert sw_lanes.launches > before[0]
+    assert sw_lanes.launches_packed == before[1] + 1
+    for name in ("sw_groups", "sw_groups_packed"):
+        assert build.library_path(name).parent == tmp_path / "kernels"
+        assert build.library_path(name).exists()
+    assert len(lines) >= 3 and eng.metrics.count("warmup") == 1
+    build.build_logs.clear()
+    eng.warmup(64)
+    assert not build.build_logs
+
+
+def test_service_over_cuda_engine_matches_search_many(cuda):
+    from oswald_tpu_torch.alphabet import decode
+    from oswald_tpu_torch.serve import SearchService
+    rng = np.random.default_rng(31)
+    db, seqs = _small_db(rng)
+    eng = SearchEngine(db, SearchConfig(top=5))
+    service = SearchService(db, eng)
+    try:
+        queries = [seqs[3], seqs[70][:40], _protein(rng, 120)]
+        out = service.search({"queries": [decode(q) for q in queries],
+                              "titles": ["a", "b", "c"]})
+    finally:
+        service.close()
+    want = eng.search_many(queries, ["a", "b", "c"])
+    assert [r["query"] for r in out["results"]] == ["a", "b", "c"]
+    for got, w in zip(out["results"], want):
+        assert [h["score"] for h in got["hits"]] == w.scores.tolist()
+        assert [h["id"] for h in got["hits"]] == w.seq_ids.tolist()
+        assert [h["title"] for h in got["hits"]] == w.titles
+    assert service.info()["backend"] == "cuda"
+    assert service.n_dispatches == 1
+
+
+def test_autotune_tiny_keeps_shipped_geometry(cuda):
+    from oswald_tpu_torch.kernels import build
+    from oswald_tpu_torch.tune import autotune
+    shipped = build.BLOCKS_PER_SM
+    out = autotune(m=16, groups=66, chunks=2, iters=1)
+    assert build.BLOCKS_PER_SM == shipped
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert all("error" not in r for r in out["results"]), out["results"]
+    assert {"blocks_per_sm": 4, "long_from": LONG_FROM} in [
+        {k: r[k] for k in ("blocks_per_sm", "long_from")}
+        for r in out["results"]]
+    assert out["gcells"] > 0

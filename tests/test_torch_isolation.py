@@ -25,6 +25,9 @@ from oswald_tpu_torch.kernels import sw_lab
 from oswald_tpu_torch.cli import main
 from oswald_tpu_torch import lab, stats
 from oswald_tpu_torch.utils import Metrics, gcups, hostmem
+from oswald_tpu_torch import serve, tune
+from oswald_tpu_torch.engine import align
+from oswald_tpu_torch.utils import compile_cache
 rng = np.random.default_rng(0)
 lengths = rng.integers(5, 60, size=200)
 db = pack_sequences(rng.integers(0, 23, size=int(lengths.sum())).astype(
@@ -55,6 +58,10 @@ for v in sw_lab.VARIANTS:
     got = sw_lab.sw_groups_lab(st.residues, st.groups, q3,
                                engine.submat_dev, 10, 2, v)
     assert got.shape == (st.groups.shape[0], 8, 128)
+service = serve.SearchService(db, engine)
+out = service.search({"query": "MKVLATGHWCE", "align": True})
+service.close()
+assert out["results"][0]["hits"][0]["alignment"]["q_aln"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "oswald_tpu" or m.startswith("oswald_tpu."))
@@ -64,8 +71,8 @@ print("loaded:", bad[:5])
 
 def test_port_never_imports_jax():
     """CPU searches in every mode (resident, host_stream, auto through the
-    planner), a batch, and every lab variant in a fresh interpreter load
-    neither jax nor oswald_tpu."""
+    planner), a batch, every lab variant, and a served search with
+    alignments in a fresh interpreter load neither jax nor oswald_tpu."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))

@@ -388,17 +388,28 @@ def test_sw_groups_ref_rejects_group_outside_buffer():
 
 def test_library_path_keyed_on_source(tmp_path, monkeypatch):
     """The built library's name changes with its source, so an edit
-    rebuilds; it lands under build/oswald_tpu_torch/."""
-    assert build.BUILD_DIR.parts[-2:] == ("build", "oswald_tpu_torch")
+    rebuilds; it lands under the kernel cache directory enabled
+    (utils.compile_cache), and its name does not depend on that directory."""
+    from oswald_tpu_torch.utils import compile_cache
+    monkeypatch.setattr(compile_cache, "_enabled_dir", None)
+    cache = tmp_path / "cache"
+    assert compile_cache.enable_compile_cache(str(cache), quiet=True) == \
+        str(cache)
+    assert build.build_dir() == cache
     real = build.library_path("sw_groups")
-    (tmp_path / "k.cu").write_text("// one\n")
-    monkeypatch.setattr(build, "CSRC", tmp_path)
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "k.cu").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", src)
     first = build.library_path("k")
     assert first == build.library_path("k")
-    (tmp_path / "k.cu").write_text("// two\n")
+    (src / "k.cu").write_text("// two\n")
     assert build.library_path("k") != first
-    assert build.library_path("k").parent == build.BUILD_DIR
-    assert real.parent == build.BUILD_DIR and real != first
+    assert build.library_path("k").parent == cache
+    assert real.parent == cache and real != first
+    name = build.library_path("k").name
+    compile_cache.enable_compile_cache(str(tmp_path / "other"), quiet=True)
+    assert build.library_path("k") == tmp_path / "other" / name
 
 
 U_ROWS = 8
