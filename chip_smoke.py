@@ -92,7 +92,36 @@ checkout's sources (one nvcc per source, all started together), then:
    counted over the phase up to here and must be non-zero.  Last,
    tune.autotune(iters=1): every candidate's Gcells/s and the winner are
    printed, and every candidate's checksum must equal the shipped
-   geometry's.
+   geometry's;
+10. preprocess: phase 2's corpus written as FASTA, then `python -m
+   oswald_tpu_torch.cli preprocess` of it in-core (with --to-oswald) and
+   with --streaming, each timed (seconds and MB/s of FASTA, process start
+   included): the native I/O library must build from native/oswald_io.cpp
+   into the checkout's kernel directory and each command must say on
+   stderr that its scan and packing took it, both artifacts must load equal to
+   phase 2's PackedDB (bin lengths, residues, lengths, ids, titles); the
+   export to OSWALD's format (export_reference_db, timed), read by
+   `preprocess --from-oswald --to-oswald`, must give the database again
+   and its three files byte for byte;
+11. distributed: (a) world size 1 in this process (a gloo group on a
+   file:// store): DistributedSearchEngine on phase 2's database equals the
+   resident SearchEngine on the 512- and 65-residue queries, search_many of
+   the 20 mixed queries and search_stream of the 8 x 65 queries, with the
+   single engine's launch counts, both timed in turn, and where a search's
+   time goes step by step beside the single engine's; (b) two ranks sharing
+   the card (spawned processes, gloo, both on cuda:0, phase 10's .oswt
+   memory-mapped): search of the 512-residue query, search_many of the
+   mixed queries and one host_stream search equal the single engine's,
+   each rank's launches its shard's plan, each rank's sw_groups time (alone
+   on the card, and with the other rank's) and share of the cells printed
+   (balance and overhead, not scaling), beside
+   the shares the re-cut to quanta 2 would give; (c) `serve --distributed`
+   on two ranks sharing the card, rank 0 on an ephemeral port: /healthz
+   answers, /search of the planted query equals the single engine, and an
+   interrupt of rank 0 releases the worker, both exiting 0 within
+   POD_EXIT_TIMEOUT_S.  Comparisons: scores and ids exact, E-values at rtol
+   1e-4, the planted homolog first with E < 1e-3.  Every process started
+   has a timeout; a hang fails the phase.
 
 One call of a kernel's wrapper is one launch, whatever roles its work table
 mixes, so the launch counts are those of the calls.  The probe prints the
@@ -149,6 +178,10 @@ SAME_CODE_RTOL = 0.03
 # phase 9: client threads, and the single-client latency run's requests
 SERVE_CLIENTS = 8
 SERVE_SINGLE_REQUESTS = 20
+# phases 10-11: limits of the processes they start, in seconds
+PREPROCESS_TIMEOUT_S = 300
+RANK_TIMEOUT_S = 300
+POD_EXIT_TIMEOUT_S = 60
 CHECKOUT_BUILD = Path(__file__).resolve().parent / "build" / "oswald_tpu_torch"
 
 
@@ -233,7 +266,8 @@ def probe():
 
 
 def make_database(n_seqs, seed):
-    """Phase 2: (db, q_long, q_short)."""
+    """Phase 2: (db, q_long, q_short, (flat, lengths, titles) of the
+    corpus in file order)."""
     from oswald_tpu_torch.io import pack_sequences
     from oswald_tpu_torch.io.synth import (make_realistic_corpus, mutate,
                                            realistic_residues)
@@ -249,7 +283,7 @@ def make_database(n_seqs, seed):
         f"{len(db.bin_lengths)} bins (longest {max(db.bin_lengths)}), "
         f"{packed / 1e6:.1f} MB packed, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    return db, q_long, q_short
+    return db, q_long, q_short, (flat, lengths, titles)
 
 
 def first_groups(engine):
@@ -1173,13 +1207,436 @@ def serving(db, engine, q_long, mixed, card):
     return launched
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def checkout_env(**extra):
+    """The environment of a process this script starts: the checkout on
+    the path, its kernel directory as the kernel cache."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, OSWALD_TPU_TORCH_COMPILE_CACHE=str(CHECKOUT_BUILD),
+               **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def run_cli(args, timeout):
+    """(seconds, stdout, stderr) of `python -m oswald_tpu_torch.cli ARGS`;
+    fails on a non-zero exit or on the timeout."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "oswald_tpu_torch.cli",
+                          *args], env=checkout_env(), capture_output=True,
+                         text=True, timeout=timeout)
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    return sec, out.stdout, out.stderr
+
+
+def same_db(got, want, what):
+    """Bin lengths, residues, lengths, ids and titles equal."""
+    if got.bin_lengths != want.bin_lengths or got.n_seqs != want.n_seqs:
+        raise AssertionError(f"{what}: bins {got.bin_lengths[:4]}... "
+                             f"differ from the packed database's")
+    if not np.array_equal(np.asarray(got.lengths), np.asarray(want.lengths)):
+        raise AssertionError(f"{what}: lengths differ")
+    for L in want.bin_lengths:
+        for k in ("seq", "len", "id"):
+            if not np.array_equal(np.asarray(got.bins[L][k]),
+                                  np.asarray(want.bins[L][k])):
+                raise AssertionError(f"{what}: bin {L} {k} differs")
+    if list(got.titles) != list(want.titles):
+        raise AssertionError(f"{what}: titles differ")
+
+
+def preprocess_phase(db, corpus, tmp, card):
+    """Phase 10.  Returns the path of the in-core artifact."""
+    from oswald_tpu_torch.io import load_db, native
+    from oswald_tpu_torch.io.synth import write_fasta
+    t0 = time.perf_counter()
+    fasta = os.path.join(tmp, "corpus.fasta")
+    write_fasta(fasta, *corpus)
+    mb = os.path.getsize(fasta) / 1e6
+    say(f"preprocess: wrote {mb:.1f} MB of FASTA in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native I/O library is not available: "
+                             f"{native.build_log}")
+    say(f"preprocess: native library {native.library_path()} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    from oswald_tpu_torch.io.db import export_reference_db
+    out = {}
+    for label, flags in (("in-core", []), ("streaming", ["--streaming"])):
+        path = os.path.join(tmp, label)
+        sec, _, err = run_cli(["preprocess", "-i", fasta, "-o", path,
+                               *flags], PREPROCESS_TIMEOUT_S)
+        # the command's own process loads the library again: it must say
+        # that its scan and packing took it
+        if f"native I/O on ({native.library_path()})" not in err:
+            raise AssertionError(f"preprocess {label} did not take the "
+                                 f"native library: {err[-2000:]}")
+        same_db(load_db(path), db, f"preprocess {label}")
+        out[label] = path
+        say(f"preprocess {label}: {sec:.2f} s = {mb / sec:.1f} MB/s of "
+            f"FASTA (the command, process start included); the artifact "
+            f"equals the packed database [{card}; the chip machine's host]")
+    # the export, then the CLI's import of it with the export again
+    base = os.path.join(tmp, "exported")
+    t0 = time.perf_counter()
+    export_reference_db(load_db(out["in-core"]), base, verbose=False)
+    ex_s = time.perf_counter() - t0
+    back = os.path.join(tmp, "back")
+    sec, _, _ = run_cli(["preprocess", "-i", base, "-o", back,
+                         "--from-oswald", "--to-oswald"],
+                        PREPROCESS_TIMEOUT_S)
+    same_db(load_db(back), db, "--from-oswald of the export")
+    for ext in (".desc", ".info", ".seq"):
+        with open(base + ext, "rb") as a, open(back + ext, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"--to-oswald wrote another {ext}")
+    say(f"preprocess: export_reference_db {ex_s:.2f} s; --from-oswald "
+        f"--to-oswald of it {sec:.2f} s: the database equal again, the "
+        f"export's files equal byte for byte [{card}; the chip machine's "
+        f"host]")
+    return out["in-core"] + ".oswt"
+
+
+def rank_main(argv):
+    """One rank of phase 11 (b): `chip_smoke.py --rank R WORLD INIT DB
+    QUERIES OUT`.  Searches the database (memory-mapped) on cuda:0 with
+    its share and writes the results, its launches, its kernel time and
+    its cell share to OUT."""
+    rank, world_size = int(argv[0]), int(argv[1])
+    init, db_path, q_path, out_path = argv[2:6]
+    from oswald_tpu_torch.dist import (DistributedSearchEngine, bootstrap,
+                                       shard_cells, shutdown)
+    from oswald_tpu_torch.engine import SearchConfig
+    from oswald_tpu_torch.engine.search import check_query
+    from oswald_tpu_torch.io import load_db
+    from oswald_tpu_torch.kernels import sw_lanes
+    from oswald_tpu_torch.utils.compile_cache import enable_compile_cache
+    import torch.distributed as tdist
+    enable_compile_cache(str(CHECKOUT_BUILD), quiet=True)
+    bootstrap(init, world_size, rank)
+    qs = np.load(q_path)
+    q_long = qs["q_long"]
+    mixed = [qs[f"mixed{i}"] for i in range(int(qs["n_mixed"]))]
+    db = load_db(db_path)
+    dev = torch.device("cuda", 0)
+    rec = {}
+    try:
+        eng = DistributedSearchEngine(db, SearchConfig(), device=dev)
+        eng.search(q_long)                                  # warm-up
+        sw_lanes.launches = sw_lanes.launches_packed = 0
+        t0 = time.perf_counter()
+        one = eng.search(q_long)
+        rec["search_s"] = time.perf_counter() - t0
+        rec["search_launches"] = sw_lanes.launches
+        sw_lanes.launches = sw_lanes.launches_packed = 0
+        t0 = time.perf_counter()
+        many = eng.search_many(mixed)
+        rec["many_s"] = time.perf_counter() - t0
+        rec["many_launches"] = [sw_lanes.launches_packed, sw_lanes.launches]
+        cells = shard_cells(eng.bounds)
+        rec["cells_share"] = cells[rank] / sum(cells)
+        q = check_query(q_long, eng.config)
+
+        def launch_ms():
+            if eng.engine is None:              # a rank that owns no group
+                return 0.0
+            return timed(lambda: eng.engine._launch(q), TIMED_RUNS)[1]
+
+        # the rank's launch alone on the card (the other rank waits at the
+        # barrier), then both ranks' launches at once
+        for r in range(world_size):
+            tdist.barrier()
+            if r == rank:
+                rec["kernel_ms"] = launch_ms()
+        tdist.barrier()
+        rec["kernel_both_ms"] = launch_ms()
+        del eng
+        hs = DistributedSearchEngine(
+            db, SearchConfig(profile_mode="host_stream"), device=dev)
+        sw_lanes.launches = 0
+        hs_res = hs.search(q_long)
+        rec["hs_launches"] = sw_lanes.launches
+        rec["hs_slices"] = 0 if hs.engine is None else \
+            len(hs.engine._hs_slices)
+        rec["results"] = {
+            name: [{"scores": r.scores.tolist(), "ids": r.seq_ids.tolist(),
+                    "evalues": r.evalues.tolist(), "title": r.titles[0]}
+                   for r in res]
+            for name, res in (("search", [one]), ("many", many),
+                              ("host_stream", [hs_res]))}
+    finally:
+        shutdown()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def wait_all(procs, timeout, what):
+    """Each process's (exit code, stdout) within `timeout` seconds; a hang
+    kills them all and fails the phase."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+            outs.append((p.returncode, out))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"{what}: no end within {timeout} s")
+    bad = [f"process {i} exited {code}: {out[-3000:]}"
+           for i, (code, out) in enumerate(outs) if code != 0]
+    if bad:
+        raise AssertionError(f"{what}: " + "\n".join(bad))
+    return outs
+
+
+def same_as(want, got, what):
+    """Results (phase 11): scores and ids exact, E-values at rtol 1e-4."""
+    for i, (w, g) in enumerate(zip(want, got)):
+        scores, ids, ev = (g["scores"], g["ids"], g["evalues"]) \
+            if isinstance(g, dict) else \
+            (g.scores.tolist(), g.seq_ids.tolist(), g.evalues)
+        if scores != w.scores.tolist() or ids != w.seq_ids.tolist():
+            raise AssertionError(f"{what}: query {i} hits differ from the "
+                                 f"single engine's")
+        if not np.allclose(ev, w.evalues, rtol=1e-4, atol=0):
+            raise AssertionError(f"{what}: query {i} E-values differ "
+                                 f"beyond rtol 1e-4")
+
+
+def world1(db, engine, queries, mixed, uniform, tmp, card):
+    """Phase 11 (a).  Returns {kernel: launches}."""
+    from oswald_tpu_torch.dist import (DistributedSearchEngine, bootstrap,
+                                       shutdown)
+    from oswald_tpu_torch.engine import SearchConfig
+    from oswald_tpu_torch.kernels import sw_lanes
+    bootstrap(f"file://{tmp}/store1", 1, 0)
+    try:
+        dist = DistributedSearchEngine(
+            db, SearchConfig(stream_readback_window=STREAM_WINDOW),
+            device=engine.device)
+        total = {"sw_groups": 0, "sw_groups_packed": 0}
+
+        def both(label, fn):
+            """fn(engine) on both engines, in turn, TIMED_RUNS + 1 times
+            each; equal results and launch counts; median seconds."""
+            counts, secs, res = {}, {"single": [], "dist": []}, {}
+            for _ in range(TIMED_RUNS + 1):
+                for name, eng in (("single", engine), ("dist", dist)):
+                    sw_lanes.launches = sw_lanes.launches_packed = 0
+                    t0 = time.perf_counter()
+                    res[name] = fn(eng)
+                    secs[name].append(time.perf_counter() - t0)
+                    got = (sw_lanes.launches, sw_lanes.launches_packed)
+                    if counts.setdefault(name, got) != got:
+                        raise AssertionError(f"{label}: launches vary")
+            if counts["single"] != counts["dist"]:
+                raise AssertionError(f"world 1 {label}: launches "
+                                     f"{counts['dist']} against the single "
+                                     f"engine's {counts['single']}")
+            same_as(res["single"], res["dist"], f"world 1 {label}")
+            total["sw_groups"] += counts["dist"][0] * (TIMED_RUNS + 1)
+            total["sw_groups_packed"] += counts["dist"][1] * (TIMED_RUNS + 1)
+            one, dst = (statistics.median(secs[k][1:])
+                        for k in ("single", "dist"))
+            say(f"world 1 {label}: {dst:.4f} s against the single engine's "
+                f"{one:.4f} s ({(dst - one) * 1e3:+.2f} ms), launches "
+                f"{counts['dist']} [{card}]")
+            return res["dist"]
+
+        for m, q in queries:
+            res = both(f"search m={m}", lambda e: [e.search(q)])
+            if m == queries[0][0] and (res[0].titles[0] != "planted_0" or
+                                       not res[0].evalues[0] < 1e-3):
+                raise AssertionError("world 1: planted homolog not first")
+        both(f"search_many mixed {len(mixed)}", lambda e: e.search_many(mixed))
+        both(f"search_stream {len(uniform)} x {len(uniform[0])}",
+             lambda e: e.search_stream(uniform))
+        world1_breakdown(dist, engine, queries, card)
+    finally:
+        shutdown()
+    return total
+
+
+def world1_breakdown(dist, engine, queries, card):
+    """Where a world-1 search's time goes beside the single engine's: the
+    launch (to the scores on the card), step 1 (top-k and sums, read
+    back), step 2 (the all_gather and the merge), step 3 (thresholds, the
+    counts on the card, read back, all_reduce), and steps 1-3 once more
+    with the statistics (`_complete`); the single engine's launch and its
+    one top-k with moments and readback.  Host clock, synchronised;
+    medians of TIMED_RUNS + 2 searches."""
+    from oswald_tpu_torch.engine.search import _topk, _unpack_topk
+    k = min(dist.config.top, dist.db.n_seqs)
+    for m, q in queries:
+        steps = {n: [] for n in ("launch", "step 1", "step 2", "step 3",
+                                 "steps 1-3 with the statistics",
+                                 "single launch", "single top-k")}
+        for _ in range(TIMED_RUNS + 2):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            groups = dist._stream_group([q])
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            rows = dist._local(groups, 1, k)
+            t.append(time.perf_counter())
+            top_s, top_i, sums = dist._exchange(rows, k)
+            t.append(time.perf_counter())
+            dist._tails(groups, sums, top_s)
+            t.append(time.perf_counter())
+            dist._complete([q], ["q"], groups)
+            t.append(time.perf_counter())
+            scores = engine.score_all(q)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            _unpack_topk(_topk(scores, engine.valid, engine.lnl,
+                               k).cpu().numpy())
+            t.append(time.perf_counter())
+            for n, v in zip(steps, np.diff(t) * 1e3):
+                steps[n].append(v)
+        say(f"world 1 m={m}, ms: " + ", ".join(
+            f"{n} {statistics.median(v):.3f}" for n, v in steps.items()) +
+            f" [{card}]")
+
+
+def two_ranks(db, engine, q_long, mixed, db_path, tmp, card):
+    """Phase 11 (b).  Returns {kernel: launches} of both ranks."""
+    from oswald_tpu_torch.dist import repack, shard_bounds, shard_cells
+    from oswald_tpu_torch.engine.search import mixed_pack_plan
+    q_path = os.path.join(tmp, "queries.npz")
+    np.savez(q_path, q_long=q_long, n_mixed=len(mixed),
+             **{f"mixed{i}": q for i, q in enumerate(mixed)})
+    init = f"file://{tmp}/store2"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+         "2", init, db_path, q_path, os.path.join(tmp, f"rank{r}.json")],
+        env=checkout_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    wait_all(procs, RANK_TIMEOUT_S, "two ranks")
+    recs = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+            for r in range(2)]
+    want_one = [engine.search(q_long)]
+    want_many = engine.search_many(mixed)
+    cfg = engine.config
+    bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows,
+                                 mixed)
+    total = {"sw_groups": 0, "sw_groups_packed": 0}
+    for r, rec in enumerate(recs):
+        res = rec["results"]
+        same_as(want_one, res["search"], f"rank {r} search")
+        same_as(want_many, res["many"], f"rank {r} search_many")
+        same_as(want_one, res["host_stream"], f"rank {r} host_stream")
+        if res["search"][0]["title"] != "planted_0":
+            raise AssertionError(f"rank {r}: planted homolog not first")
+        if rec["search_launches"] != 1 or \
+                rec["many_launches"] != [len(bins), len(rest)] or \
+                rec["hs_launches"] != rec["hs_slices"]:
+            raise AssertionError(f"rank {r}: launches {rec} against the "
+                                 f"plan's 1, [{len(bins)}, {len(rest)}] and "
+                                 f"one per slice")
+        total["sw_groups"] += 1 + len(rest) + rec["hs_launches"]
+        total["sw_groups_packed"] += len(bins)
+        say(f"two ranks on one card (balance and overhead, not scaling): "
+            f"rank {r}: {rec['cells_share'] * 100:.2f}% of the cells, "
+            f"sw_groups at m={Q_LONG} {rec['kernel_ms']:.2f} ms alone, "
+            f"{rec['kernel_both_ms']:.2f} ms with the other rank's, search "
+            f"{rec['search_s']:.4f} s, mixed batch {rec['many_s']:.4f} s, "
+            f"host_stream {rec['hs_slices']} slices [{card}]")
+    # the alternative split: the re-cut to quanta 2 (equal group counts)
+    geo = repack.group_geometry(db)
+    plan = repack.mesh_bin_plan(geo, 2)
+    even = shard_cells(shard_bounds(db, 2))
+    recut = repack.plan_sharded_cells(geo, 2, plan)
+    say(f"two ranks: the even split gives {even[0]} and {even[1]} cells "
+        f"(of {sum(even)}); the re-cut to quanta 2 gives {recut // 2} each "
+        f"(of {recut}, {len(plan)} bins)")
+    return total
+
+
+def pod_serving(db, engine, q_long, db_path, card):
+    """Phase 11 (c): `serve --distributed` on two ranks sharing the card,
+    rank 0 on an ephemeral port."""
+    import select
+    import signal
+    from oswald_tpu_torch.alphabet import decode
+    port = free_port()
+    procs = []
+    for r in range(2):
+        env = checkout_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "oswald_tpu_torch.cli", "serve", "-d",
+             db_path, "--distributed", "--device", "cuda:0", "--port", "0",
+             "--warmup-qlen", str(Q_LONG)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        deadline, base = time.monotonic() + RANK_TIMEOUT_S, None
+        while base is None and time.monotonic() < deadline:
+            if select.select([procs[0].stdout], [], [], 1.0)[0]:
+                line = procs[0].stdout.readline()
+                if not line:
+                    break
+                if "[pod: 2 ranks]" in line:
+                    base = line.split(" at ")[1].split()[0]
+        if base is None:
+            raise AssertionError("pod: rank 0 did not start serving")
+        if _get(base, "/healthz")["status"] != "ok":
+            raise AssertionError("pod: /healthz")
+        t0 = time.perf_counter()
+        out = _post(base, {"query": decode(q_long)})
+        sec = time.perf_counter() - t0
+        hits = out["results"][0]["hits"]
+        want = engine.search(q_long)
+        if [h["score"] for h in hits] != want.scores.tolist() or \
+                [h["id"] for h in hits] != want.seq_ids.tolist():
+            raise AssertionError("pod: /search differs from the single "
+                                 "engine")
+        procs[0].send_signal(signal.SIGINT)
+        t0 = time.perf_counter()
+        outs = wait_all(procs, POD_EXIT_TIMEOUT_S, "pod shutdown")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if "exiting after 1 queries" not in outs[1][1]:
+        raise AssertionError(f"pod: the worker did not mirror the request: "
+                             f"{outs[1][1][-1000:]}")
+    say(f"pod: /search of the planted query {sec * 1e3:.2f} ms, equal to "
+        f"the single engine; shutdown released the worker, both ranks "
+        f"exited 0 in {time.perf_counter() - t0:.2f} s (limit "
+        f"{POD_EXIT_TIMEOUT_S} s) [{card}]")
+
+
+def distributed(db, engine, queries, mixed, uniform, db_path, card):
+    """Phase 11.  Returns {kernel: launches} of (a) and (b)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        a = world1(db, engine, queries, mixed, uniform, tmp, card)
+        b = two_ranks(db, engine, queries[0][1], mixed, db_path, tmp, card)
+    pod_serving(db, engine, queries[0][1], db_path, card)
+    return {k: a[k] + b[k] for k in a}
+
+
 def run(device, n_seqs, card, seed=SEED):
-    """Phases 2-9 on `device` (`card` labels the times); returns the
+    """Phases 2-11 on `device` (`card` labels the times); returns the
     kernels record."""
     from oswald_tpu_torch.engine import SearchConfig, SearchEngine
     from oswald_tpu_torch.io.synth import realistic_residues
     from oswald_tpu_torch.utils.metrics import gcups
-    db, q_long, q_short = make_database(n_seqs, seed)
+    db, q_long, q_short, corpus = make_database(n_seqs, seed)
     mem_base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     engine = SearchEngine(
@@ -1235,19 +1692,25 @@ def run(device, n_seqs, card, seed=SEED):
     hs_launches = host_stream_path(db, engine, queries, mixed, card,
                                    resident_peak)
     serve_launches = serving(db, engine, q_long, mixed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path = preprocess_phase(db, corpus, tmp, card)
+        dist_launches = distributed(db, engine, queries, mixed, uniform,
+                                    db_path, card)
     common = {"route": "cuda", "library_ms": None}
     return {"kernels": [
         {"name": "sw_groups", "source": SOURCES["sw_groups"],
          "replaces": REPLACES,
          "launches": launches + batch_launches["sw_groups"] +
-         hs_launches["sw_groups"] + serve_launches["sw_groups"],
+         hs_launches["sw_groups"] + serve_launches["sw_groups"] +
+         dist_launches["sw_groups"],
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": b_ms, "bound_by": b_by, **common},
         {"name": "sw_groups_packed", "source": SOURCES["sw_groups_packed"],
          "replaces": REPLACES,
          "launches": batch_launches["sw_groups_packed"] +
          hs_launches["sw_groups_packed"] +
-         serve_launches["sw_groups_packed"],
+         serve_launches["sw_groups_packed"] +
+         dist_launches["sw_groups_packed"],
          "max_abs_err": perr, "ms": pk_ms, "plain_ms": pp_ms,
          "bound_ms": pb_ms, "bound_by": pb_by, **common},
         # the lab kernel does sw_groups' work on sw_groups' inputs: phase
@@ -1270,6 +1733,8 @@ def run(device, n_seqs, card, seed=SEED):
 
 
 def main():
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1

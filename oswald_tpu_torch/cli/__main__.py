@@ -2,4 +2,7 @@ import sys
 
 from oswald_tpu_torch.cli.main import main
 
-sys.exit(main())
+# guarded: the ranks --devices starts are spawned processes, which import
+# this module again under another name
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,5 @@
-"""Command-line interface of the port: search | serve | info | tune | cache.
+"""Command-line interface of the port: preprocess | search | serve | info |
+tune | cache.
 
 `search` takes the flags of oswald_tpu's `search` (the reference's -q -d -s
 -g -e -r surface and the engine flags) plus `--device`, and prints the same
@@ -14,11 +15,22 @@ announces an `auto` plan on stderr, so `--json` output stays clean.
 and prints the `--blocks-per-sm`/`--long-from` flags to pass to `search`
 and `serve`; `cache` packs, unpacks and reports the directory the kernel
 libraries are built into (`--compile-cache DIR`, `--no-compile-cache`).
-`--distributed` and `--devices` > 1 exit 2 with a "not yet ported" error,
-and `preprocess` is not ported yet.  The `.oswt` databases are those both
-packages read: `oswald_tpu_torch.io.preprocess_db` or `python -m
-oswald_tpu.cli preprocess` writes them.  A multi-query FASTA runs as one
-batch (packed launches) unless --no-batch is given.
+`preprocess` packs a FASTA (gzip, bzip2 or xz too) into the `.oswt`
+database both packages read; `--streaming` builds it out of core (on by
+itself above 2 GiB of FASTA), `--from-oswald` imports the FPGA tool's
+`.desc/.info/.seq` triple and `--to-oswald` also writes one; its native
+scan and packing build into the kernel directory, and a stderr line says
+whether they ran.  A
+multi-query FASTA runs as one batch (packed launches) unless --no-batch is
+given.
+
+Across ranks (`DistributedSearchEngine`, one device each): `--distributed`
+joins the process group torchrun describes (`torchrun --nproc-per-node N
+-m oswald_tpu_torch.cli search --distributed ...`), and `--devices N`
+without it starts N local ranks itself, rank r on cuda:r (all on the one
+card `--device cuda:K` names, or on the CPU under `--device cpu`).  Every
+rank runs the command; rank 0 prints, and the command fails if any rank
+fails.
 """
 
 import argparse
@@ -77,9 +89,16 @@ def _add_engine_args(sp):
                     help="number of scores to show (default: 10)")
     _add_device_arg(sp)
     sp.add_argument("--devices", type=int, default=None,
-                    help="devices in the search (only 1 is ported)")
+                    help="ranks in the search, one device each (default: "
+                         "1, or the world torchrun starts under "
+                         "--distributed); above 1 without --distributed "
+                         "this command starts the ranks itself, rank r on "
+                         "cuda:r")
     sp.add_argument("--distributed", action="store_true",
-                    help="multi-host run (not yet ported)")
+                    help="join the torch.distributed process group "
+                         "torchrun describes (MASTER_ADDR, MASTER_PORT, "
+                         "RANK, WORLD_SIZE) and search across its ranks; "
+                         "every rank runs the same command, rank 0 prints")
     sp.add_argument("--profile-mode",
                     choices=("auto", "precompute", "stream", "host_stream"),
                     default="auto",
@@ -152,6 +171,25 @@ def build_parser():
         description="Smith-Waterman protein database search on PyTorch "
                     "and CUDA")
     sub = p.add_subparsers(dest="op", required=True)
+
+    pp = sub.add_parser("preprocess", help="FASTA -> packed database")
+    pp.add_argument("-i", "--input", required=True,
+                    help="input FASTA filename (gzip, bzip2 or xz too)")
+    pp.add_argument("-o", "--output", required=True,
+                    help="output database path (writes <output>.oswt/)")
+    pp.add_argument("--streaming", action="store_true",
+                    help="out-of-core build (bounded host memory) for "
+                         "databases larger than RAM; on by itself for "
+                         "FASTA files over 2 GiB (compressed input counts "
+                         "four times its size)")
+    pp.add_argument("--from-oswald", action="store_true",
+                    help="INPUT is the base path of a database the FPGA "
+                         "tool OSWALD preprocessed (<input>.desc/.info/"
+                         ".seq) instead of FASTA")
+    pp.add_argument("--to-oswald", action="store_true",
+                    help="also write OSWALD's <output>.desc/.info/.seq "
+                         "triple next to the .oswt")
+
     sp = sub.add_parser("search", help="search a packed database")
     _add_search_args(sp)
 
@@ -217,17 +255,10 @@ def _enable_cache(args):
         getattr(args, "compile_cache", None))
 
 
-def _not_ported(args):
-    """The first flag given whose path this port does not have yet."""
-    for flag, given in (("--distributed", args.distributed),
-                        ("--devices > 1", (args.devices or 1) > 1)):
-        if given:
-            return flag
-    return None
-
-
-def _device(args):
-    """The torch device of --device, refused (exit 2) where it cannot run."""
+def _device(args, world_size: int = 1):
+    """The torch device of --device, refused (exit 2) where it cannot run.
+    A rank of a world above 1 takes cuda:LOCAL_RANK for a bare `cuda`."""
+    import os
     import torch
     try:
         device = torch.device(args.device)
@@ -236,16 +267,91 @@ def _device(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise ValueError("CUDA is not available; pass --device cpu to run "
                          "on the CPU")
+    if device.type == "cuda" and device.index is None and world_size > 1:
+        device = torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", 0)) %
+            torch.cuda.device_count())
     return device
+
+
+def _rank_main(argv, rank: int, world_size: int, init: str):
+    """One rank started by --devices: join the group, then run the command
+    as a rank of it."""
+    import os
+    import signal
+    import torch
+    from oswald_tpu_torch.dist import bootstrap
+    os.environ["LOCAL_RANK"] = str(rank)
+    if rank:
+        # an interrupt ends the run through rank 0 (a pod server drains,
+        # then releases the other ranks)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+    # the ranks share this host's cores (all of the work under --device
+    # cpu): without a share each, their thread pools contend
+    torch.set_num_threads(max(1, torch.get_num_threads() // world_size))
+    bootstrap(init, world_size, rank)
+    sys.exit(main(list(argv) + ["--distributed"]))
+
+
+def _spawn_ranks(args, argv) -> int:
+    """--devices N without --distributed: start N ranks (spawned processes
+    joined through a file store in a temporary directory), wait for them;
+    the first rank to fail stops the others and gives the exit code."""
+    import os
+    import signal
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    n = args.devices
+    with _user_errors():
+        device = _device(args)
+        if device.type == "cuda" and device.index is None and \
+                n > torch.cuda.device_count():
+            raise ValueError(
+                f"--devices {n}: only {torch.cuda.device_count()} CUDA "
+                f"devices here (pass --device cuda:K to put every rank on "
+                f"card K)")
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="oswald-ranks-") as tmp:
+        init = f"file://{tmp}/store"
+        procs = [ctx.Process(target=_rank_main, args=(argv, r, n, init))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        code = 0
+        while not code and any(p.is_alive() for p in procs):
+            try:
+                for p in procs:
+                    p.join(timeout=0.1)
+                    if p.exitcode:
+                        code = p.exitcode if p.exitcode > 0 else 1
+                        break
+            except KeyboardInterrupt:
+                if procs[0].is_alive():
+                    os.kill(procs[0].pid, signal.SIGINT)
+        for p in procs:
+            if code:
+                p.terminate()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            if p.exitcode and not code:
+                code = p.exitcode if p.exitcode > 0 else 1
+        return code
 
 
 def _build_engine(args):
     """Engine construction shared by `search` and `serve`: validate the
     flags, point the kernel build at its directory and geometry, load the
-    database, build the engine.  Returns (db, engine, setup_s)."""
-    flag = _not_ported(args)
-    if flag:
-        raise _CLIError(f"{flag} is not yet ported")
+    database, build the engine (DistributedSearchEngine in a world above
+    1).  Returns (db, engine, setup_s, rank, world size)."""
+    from oswald_tpu_torch.dist import bootstrap
+    rank, size = bootstrap() if args.distributed else (0, 1)
+    if args.distributed and args.devices is not None and \
+            args.devices != size:
+        raise _CLIError(f"--devices {args.devices} under --distributed: "
+                        f"the process group has {size} ranks")
     from oswald_tpu_torch.engine import SearchEngine, SearchConfig
     from oswald_tpu_torch.io.db import load_db
     from oswald_tpu_torch.kernels import build
@@ -263,7 +369,7 @@ def _build_engine(args):
                            max_query_len=args.max_query_len,
                            hbm_budget_bytes=args.hbm_budget_mb << 20
                            if args.hbm_budget_mb else None)
-        device = _device(args)
+        device = _device(args, size)
         if args.blocks_per_sm is not None and args.blocks_per_sm < 1:
             raise ValueError(f"--blocks-per-sm must be >= 1, got "
                              f"{args.blocks_per_sm}")
@@ -276,8 +382,14 @@ def _build_engine(args):
             build.BLOCKS_PER_SM = args.blocks_per_sm
         t_setup = time.perf_counter()
         db = load_db(args.db)
-    engine = SearchEngine(db, cfg, device=device, long_from=args.long_from)
-    return db, engine, time.perf_counter() - t_setup
+    if size > 1:
+        from oswald_tpu_torch.dist import DistributedSearchEngine
+        engine = DistributedSearchEngine(db, cfg, device=device,
+                                         long_from=args.long_from)
+    else:
+        engine = SearchEngine(db, cfg, device=device,
+                              long_from=args.long_from)
+    return db, engine, time.perf_counter() - t_setup, rank, size
 
 
 def _alignment_json(a):
@@ -303,7 +415,7 @@ def cmd_search(args):
                     f"query '{t}' length {len(q)} exceeds --max-query-len "
                     f"{args.max_query_len} (raise the flag to accept longer "
                     f"queries)")
-    db, engine, setup_s = _build_engine(args)
+    db, engine, setup_s, rank, size = _build_engine(args)
     device = engine.device
 
     trace_ctx = contextlib.nullcontext()
@@ -317,6 +429,19 @@ def cmd_search(args):
     search_s = time.perf_counter() - t0
     Q = sum(len(q) for q in queries)
     gcups = _gcups(Q, db.n_residues, search_s)
+
+    flats = None
+    if args.histogram and not (args.json or args.tab):
+        # score_all is a collective across ranks: every rank scores
+        flats = []
+        for q in queries:
+            try:
+                flats.append(engine.score_all(q).cpu().numpy())
+            except ValueError as e:
+                flats.append(e)
+    # every rank ran the search; rank 0 prints
+    if rank != 0:
+        return 0
 
     alignments = None
     if args.align or args.tab:
@@ -355,7 +480,7 @@ def cmd_search(args):
                         "db_residues": db.n_residues,
                         "search_s": round(search_s, 4),
                         "setup_s": round(setup_s, 4),
-                        "gcups": round(gcups, 2), "devices": 1,
+                        "gcups": round(gcups, 2), "devices": size,
                         "matrix": args.sm, "gap_open": args.gap_open,
                         "gap_extend": args.gap_extend}}))
         if args.metrics:
@@ -376,12 +501,11 @@ def cmd_search(args):
             print("\nScore\tSequence description")
             for sc, title in zip(res.scores, res.titles):
                 print(f"{int(sc)}\t{title}")
-        if args.histogram:
+        if flats is not None:
             from oswald_tpu_torch.stats import histogram_report
-            try:
-                flat = engine.score_all(queries[i]).cpu().numpy()
-            except ValueError as e:
-                print(f"\n(--histogram: {e})", file=sys.stderr)
+            flat = flats[i]
+            if isinstance(flat, ValueError):
+                print(f"\n(--histogram: {flat})", file=sys.stderr)
             else:
                 print("\n" + histogram_report(
                     flat[engine.ids_flat >= 0], res.stats,
@@ -402,7 +526,7 @@ def cmd_search(args):
     print(f"Setup time:\t\t\t{setup_s:.4f} seconds")
     print(f"Search time:\t\t\t{search_s:.4f} seconds")
     print(f"Search speed:\t\t\t{gcups:.2f} GCUPS")
-    print(f"Devices:\t\t\t1 ({device}: {kind})")
+    print(f"Devices:\t\t\t{size} ({device}: {kind})")
     print(f"Group lanes:\t\t\t1024 (8x128 lanes, one subject per thread)")
     if args.metrics:
         print("\nPhase timings:")
@@ -412,17 +536,74 @@ def cmd_search(args):
 
 def cmd_serve(args):
     from oswald_tpu_torch.serve import serve_forever
-    db, engine, setup_s = _build_engine(args)
-    print(f"engine ready in {setup_s:.2f}s")
+    db, engine, setup_s, rank, _ = _build_engine(args)
+    if rank == 0:
+        print(f"engine ready in {setup_s:.2f}s")
     return serve_forever(db, engine, args.host, args.port,
                          warmup_qlen=args.warmup_qlen or None,
                          warmup_jobs=args.warmup_jobs)
 
 
+def _say_native():
+    """One stderr line: whether the FASTA scan and the packing take the
+    native library (the test that io.fasta and io.db make) and, if not,
+    why."""
+    import os
+    from oswald_tpu_torch.io import native
+    if os.environ.get("OSWALD_NO_NATIVE"):
+        print(f"{PROG} preprocess: native I/O off (OSWALD_NO_NATIVE)",
+              file=sys.stderr)
+    elif native.available():
+        print(f"{PROG} preprocess: native I/O on ({native.loaded_from})",
+              file=sys.stderr)
+    else:
+        why = native.build_log.strip().splitlines()
+        print(f"{PROG} preprocess: native I/O off "
+              f"({why[-1] if why else 'no library'})", file=sys.stderr)
+
+
+def cmd_preprocess(args):
+    import os
+    with _user_errors():
+        if args.from_oswald:
+            from oswald_tpu_torch.io.db import import_reference_db, save_db
+            db = import_reference_db(args.input)
+            save_db(db, args.output)
+            print(f"{PROG} preprocess: wrote {args.output}.oswt")
+        else:
+            # the native library builds into the kernel directory
+            _enable_cache(args)
+            _say_native()
+            size = os.path.getsize(args.input) \
+                if os.path.exists(args.input) else 0
+            if size:
+                with open(args.input, "rb") as fh:
+                    head = fh.read(6)
+                if head[:2] == b"\x1f\x8b" or head[:3] == b"BZh" \
+                        or head[:6] == b"\xfd7zXZ\x00":
+                    size *= 4    # compressed: judge by ~decompressed size
+            if args.streaming or size > 2 << 30:
+                from oswald_tpu_torch.io.stream import \
+                    preprocess_db_streaming
+                preprocess_db_streaming(args.input, args.output)
+            else:
+                from oswald_tpu_torch.io.db import preprocess_db
+                preprocess_db(args.input, args.output)
+        if args.to_oswald:
+            # read the artifact back (memory-mapped), so the export is the
+            # same for in-core, streaming and imported builds
+            from oswald_tpu_torch.io.db import load_db, export_reference_db
+            export_reference_db(load_db(args.output), args.output)
+    return 0
+
+
 def cmd_info(args):
     import torch
+    from oswald_tpu_torch.dist import bootstrap
     from oswald_tpu_torch.utils.compile_cache import cache_stats
     print(f"PyTorch {torch.__version__}, CUDA {torch.version.cuda}")
+    rank, size = bootstrap()
+    print(f"Rank {rank} of {size}")
     if not torch.cuda.is_available():
         print("Devices (0 total): CUDA is not available")
     else:
@@ -483,10 +664,15 @@ def cmd_cache(args):
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     try:
-        return {"search": cmd_search, "serve": cmd_serve, "info": cmd_info,
-                "tune": cmd_tune, "cache": cmd_cache}[args.op](args)
+        if args.op in ("search", "serve") and not args.distributed and \
+                (args.devices or 1) > 1:
+            return _spawn_ranks(args, argv)
+        return {"preprocess": cmd_preprocess, "search": cmd_search,
+                "serve": cmd_serve, "info": cmd_info, "tune": cmd_tune,
+                "cache": cmd_cache}[args.op](args)
     except _CLIError as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 2

@@ -190,6 +190,65 @@ def _result_stats(db, lnl_table, lnl_mom, len_hist,
     return ev, bits, st
 
 
+def _score_sums(scores, valid, lnl):
+    """float32 [..., 4]: sum(S), sum(S^2), sum(S*lnL) and the valid count
+    over the valid slots of `scores` [..., N], summed in float32 as the
+    reference does."""
+    sf = torch.where(valid, scores, 0).to(torch.float32)
+    n = valid.to(torch.float32).sum()
+    s1 = sf.sum(-1)
+    return torch.stack([s1, (sf * sf).sum(-1), (sf * lnl).sum(-1),
+                        n.expand_as(s1)], dim=-1)
+
+
+# exact sums of S*lnL are integers over lnL in fixed point: every float32
+# ln length (0, or at least ln 2 > 1/2) is a whole multiple of 2^-24
+LNL_FIXED = 1 << 24
+
+
+def _exact_sums(scores, valid, lnl):
+    """int64 [..., 4]: the sums of `_score_sums` computed exactly (sum(S*lnL)
+    times LNL_FIXED), so the same in any order of summation: the sums of a
+    database's shards add up to the whole database's, bit for bit."""
+    s = torch.where(valid, scores, 0).to(torch.int64)
+    lf = torch.round(lnl.to(torch.float64) * LNL_FIXED).to(torch.int64)
+    s1 = s.sum(-1)
+    return torch.stack([s1, (s * s).sum(-1), (s * lf).sum(-1),
+                        valid.sum().expand_as(s1)], dim=-1)
+
+
+def _sums_float32(sums):
+    """float32 [..., 4] of `_exact_sums`, each rounded once: the moments in
+    the form `_score_sums` gives them."""
+    f = sums.to(torch.float32)
+    return torch.stack([f[..., 0], f[..., 1], f[..., 2] / LNL_FIXED,
+                        f[..., 3]], dim=-1)
+
+
+def _tail_thresholds(sums, top):
+    """(T0, T1), float32 [...]: the tail thresholds of stats.tail_calibrate,
+    in hit-excluded sd above the mean, from `_score_sums` [..., 4] and the
+    reported hits' scores `top` [..., k] (entries < 0 are no hit)."""
+    s1, s2, n = sums[..., 0], sums[..., 1], sums[..., 3]
+    top = top.to(torch.float32)
+    topv = top >= 0
+    tf = torch.where(topv, top, 0.0)
+    n_ex = torch.clamp_min(n - topv.to(torch.float32).sum(-1), 1.0)
+    mean = (s1 - tf.sum(-1)) / n_ex
+    var = torch.clamp_min((s2 - (tf * tf).sum(-1)) / n_ex - mean * mean, 0.0)
+    sd = torch.sqrt(var)
+    return torch.ceil(mean + TAIL_SDS0 * sd), torch.ceil(mean + TAIL_SDS * sd)
+
+
+def _tail_counts(scores, valid, t0, t1):
+    """float32 [..., 2]: the valid slots of `scores` [..., N] at or above
+    T0 and T1 [...] (the counts include the hits)."""
+    sf = torch.where(valid, scores, 0).to(torch.float32)
+    return torch.stack(
+        [(valid & (sf >= t[..., None])).to(torch.float32).sum(-1)
+         for t in (t0, t1)], dim=-1)
+
+
 def _append_moments(packed, scores, valid, lnl):
     """Append MOM_COLS int32 columns holding the float32 score moments
     [sum(S), sum(S^2), sum(S*lnL), T1] / [c0, c1, T0, 0] over the valid
@@ -198,34 +257,22 @@ def _append_moments(packed, scores, valid, lnl):
     dimensions; every query of a batch gets its own moments.  T0/T1 derive
     from the mean and sd without the top-k (row 0); the counts include the
     hits."""
-    sf = torch.where(valid, scores, 0).to(torch.float32)
-    n = valid.to(torch.float32).sum()
-    s1, s2 = sf.sum(-1), (sf * sf).sum(-1)
-    slnl = (sf * lnl).sum(-1)
-    top = packed[..., 0, :].to(torch.float32)
-    topv = top >= 0
-    tf = torch.where(topv, top, 0.0)
-    n_ex = torch.clamp_min(n - topv.to(torch.float32).sum(-1), 1.0)
-    mean = (s1 - tf.sum(-1)) / n_ex
-    var = torch.clamp_min((s2 - (tf * tf).sum(-1)) / n_ex - mean * mean, 0.0)
-    sd = torch.sqrt(var)
-    t0 = torch.ceil(mean + TAIL_SDS0 * sd)
-    t1 = torch.ceil(mean + TAIL_SDS * sd)
-    c0 = (valid & (sf >= t0[..., None])).to(torch.float32).sum(-1)
-    c1 = (valid & (sf >= t1[..., None])).to(torch.float32).sum(-1)
-    mom = torch.stack([s1, s2, slnl, t1, c0, c1, t0, torch.zeros_like(s1)],
+    f = _score_sums(scores, valid, lnl)
+    t0, t1 = _tail_thresholds(f, packed[..., 0, :])
+    c = _tail_counts(scores, valid, t0, t1)
+    mom = torch.stack([f[..., 0], f[..., 1], f[..., 2], t1,
+                       c[..., 0], c[..., 1], t0, torch.zeros_like(t0)],
                       dim=-1)
     cols = mom.view(torch.int32).reshape(mom.shape[:-1] + (2, MOM_COLS))
     return torch.cat([packed, cols], dim=-1)
 
 
-def _topk(scores, valid, lnl, k: int):
-    """Masked top-k packed as int32[..., 2, k + MOM_COLS]: scores in row 0,
-    slots in row 1, moments in the last columns.  `scores` is [..., N]; a
-    leading batch dimension gives each query its own top-k.  Ties go to the
-    lowest slot, as lax.top_k gives them: the order is taken over one int64
-    key per slot, (score << 32) | (2^31 - 1 - slot), with padding slots at
-    -1."""
+def _topk_slots(scores, valid, k: int):
+    """Masked top-k as int32[..., 2, k]: scores in row 0, slots in row 1.
+    `scores` is [..., N]; a leading batch dimension gives each query its
+    own top-k.  Ties go to the lowest slot, as lax.top_k gives them: the
+    order is taken over one int64 key per slot, (score << 32) | (2^31 - 1 -
+    slot), with padding slots at -1 (score -1, a negative slot)."""
     slot = torch.arange(scores.shape[-1], device=scores.device,
                         dtype=torch.int64)
     key = torch.where(valid,
@@ -234,8 +281,13 @@ def _topk(scores, valid, lnl, k: int):
     top = torch.topk(key, k, dim=-1).values
     vals = (top >> 32).to(torch.int32)
     idx = ((1 << 31) - 1 - (top & 0xFFFFFFFF)).to(torch.int32)
-    return _append_moments(torch.stack([vals, idx], dim=-2), scores, valid,
-                           lnl)
+    return torch.stack([vals, idx], dim=-2)
+
+
+def _topk(scores, valid, lnl, k: int):
+    """Masked top-k packed as int32[..., 2, k + MOM_COLS]: `_topk_slots`
+    with the moments in the last columns (`_append_moments`)."""
+    return _append_moments(_topk_slots(scores, valid, k), scores, valid, lnl)
 
 
 def _unpack_topk(arr):
@@ -263,29 +315,47 @@ def _host_topk(scores_flat, ids_flat, k):
             (1 << 31) - 1 - (top & 0xFFFFFFFF))
 
 
+def _host_sums(scores_flat, valid_mask, lnl_flat):
+    """float64 (sum(S), sum(S^2), sum(S*lnL), valid count) over the valid
+    slots of host scores [n] or [Q, n]: scalars or [Q] arrays."""
+    sf = np.asarray(scores_flat, np.float64)[..., valid_mask]
+    l = np.asarray(lnl_flat, np.float64)[valid_mask]
+    msum = sf.sum(-1)
+    return (msum, (sf * sf).sum(-1), (sf * l).sum(-1),
+            np.full_like(msum, valid_mask.sum()))
+
+
+def _host_thresholds(msum, msumsq, n_valid, top_scores):
+    """(T0, T1) of `_tail_thresholds` in float64 from host sums and the
+    reported hits ([k] / [Q, k]; entries < 0 are no hit)."""
+    tops = np.asarray(top_scores, np.float64)
+    tv = tops >= 0
+    n_ex = np.maximum(n_valid - tv.sum(-1), 1)
+    tf = np.where(tv, tops, 0.0)
+    mean = (msum - tf.sum(-1)) / n_ex
+    var = np.maximum((msumsq - (tf * tf).sum(-1)) / n_ex - mean * mean,
+                     0.0)
+    sd = np.sqrt(var)
+    return np.ceil(mean + TAIL_SDS0 * sd), np.ceil(mean + TAIL_SDS * sd)
+
+
+def _host_counts(scores_flat, valid_mask, t0, t1):
+    """(c0, c1) float64: valid host scores at or above T0 and T1."""
+    sf = np.asarray(scores_flat, np.float64)[..., valid_mask]
+    up = (lambda t: np.asarray(t)[..., None]) if sf.ndim > 1 else \
+        (lambda t: t)
+    return tuple((sf >= up(t)).sum(-1).astype(np.float64) for t in (t0, t1))
+
+
 def _host_moments(scores_flat, valid_mask, lnl_flat, top_scores):
     """The moments and tail counts of `_append_moments` over scores that
     are already on the host, in float64.  scores_flat: [n] or [Q, n];
     top_scores the reported hits per row ([k] / [Q, k]), left out of the
     mean and sd the tail thresholds derive from.  Returns (sum, sumsq,
     slnl, T1, c0, c1, T0) as scalars or [Q] arrays."""
-    sf = np.asarray(scores_flat, np.float64)[..., valid_mask]
-    l = np.asarray(lnl_flat, np.float64)[valid_mask]
-    msum, msumsq = sf.sum(-1), (sf * sf).sum(-1)
-    mslnl = (sf * l).sum(-1)
-    tops = np.asarray(top_scores, np.float64)
-    tv = tops >= 0
-    n_ex = np.maximum(valid_mask.sum() - tv.sum(-1), 1)
-    tf = np.where(tv, tops, 0.0)
-    mean = (msum - tf.sum(-1)) / n_ex
-    var = np.maximum((msumsq - (tf * tf).sum(-1)) / n_ex - mean * mean,
-                     0.0)
-    sd = np.sqrt(var)
-    t0 = np.ceil(mean + TAIL_SDS0 * sd)
-    t1 = np.ceil(mean + TAIL_SDS * sd)
-    up = (lambda t: t[..., None]) if sf.ndim > 1 else (lambda t: t)
-    c0 = (sf >= up(t0)).sum(-1).astype(np.float64)
-    c1 = (sf >= up(t1)).sum(-1).astype(np.float64)
+    msum, msumsq, mslnl, n = _host_sums(scores_flat, valid_mask, lnl_flat)
+    t0, t1 = _host_thresholds(msum, msumsq, n, top_scores)
+    c0, c1 = _host_counts(scores_flat, valid_mask, t0, t1)
     return msum, msumsq, mslnl, t1, c0, c1, t0
 
 
@@ -309,6 +379,55 @@ def check_query(query, config: SearchConfig) -> np.ndarray:
     if q.size == 0:
         q = np.full(1, DUMMY, np.int32)
     return q
+
+
+def check_lengths(queries, config: SearchConfig):
+    """Refuse a batch with a query over config.max_query_len before any
+    search runs."""
+    cap = config.max_query_len
+    for i, q in enumerate(queries):
+        if np.asarray(q).size > cap:
+            raise ValueError(
+                f"query {i} length {np.asarray(q).size} exceeds the "
+                f"engine's configured max_query_len {cap} — rebuild with "
+                f"SearchConfig(max_query_len=...) / --max-query-len")
+
+
+def warmup_engine(engine, max_query_len: int, batch: bool, log):
+    """The steps of SearchEngine.warmup, for any engine with its device,
+    config, metrics, search and search_many: on a card, build and load
+    both engine kernel libraries; then one search of min(max_query_len,
+    config.max_query_len) DUMMY residues and, with `batch`, one
+    search_many of two such queries of at most half of
+    batch_query_pack_rows (so that they pack).  Returns the libraries'
+    names ([] on the CPU)."""
+    from oswald_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+
+    def say(msg):
+        if log:
+            log(f"warmup [{time.perf_counter() - t0:5.1f}s] {msg}")
+
+    m = max(1, min(max_query_len, engine.config.max_query_len))
+    loaded = []
+    if engine.device.type == "cuda":
+        names = ["sw_groups", "sw_groups_packed"]
+        say(f"kernel libraries {', '.join(names)} in {build.build_dir()}")
+        build.build_all(names)
+        for name in names:
+            build.load(name)
+        loaded = names
+    say(f"one search of {m} residues")
+    engine.search(np.full(m, DUMMY, np.int8))
+    if batch:
+        mb = max(1, min(m, engine.config.batch_query_pack_rows // 2))
+        say(f"one batch of two queries of {mb} residues")
+        q = np.full(mb, DUMMY, np.int8)
+        engine.search_many([q, q])
+    # both searches ended with their readback: the card is idle
+    engine.metrics.add("warmup", time.perf_counter() - t0)
+    say("done")
+    return loaded
 
 
 # segment slots per packed bin: caps the queries of one packed launch (its
@@ -387,6 +506,25 @@ def plan_segments(idxs, seg_map, used_blocks, u_rows, queries):
         segs[s] = (int(np.flatnonzero(seg_map == s)[0]) * u_rows,
                    max(int(np.asarray(queries[i]).size), 1))
     return segs
+
+
+def batch_plan(config, queries):
+    """The launches of a packed batch, group by group: [(query indices,
+    [(query rows int32[m], segs int32[S, 2] or None)])].  One group per bin
+    of mixed_pack_plan, one sw_groups_packed launch each; then the queries
+    too long to pack, one sw_groups launch each, in groups of at most
+    MIXED_PACK_SEGS.  No group has more score rows than the widest packed
+    launch, which is what the planner budgets for (planner.BATCH_SEGS)."""
+    bins, rest = mixed_pack_plan(config.batch_query_pack_rows,
+                                 config.u_rows, queries)
+    plan = [(idxs, [(q_packed, plan_segments(idxs, seg_map, used,
+                                             config.u_rows, queries))])
+            for idxs, q_packed, seg_map, used in bins]
+    for lo in range(0, len(rest), MIXED_PACK_SEGS):
+        chunk = rest[lo:lo + MIXED_PACK_SEGS]
+        plan.append((chunk, [(check_query(queries[i], config), None)
+                             for i in chunk]))
+    return plan
 
 
 class SearchEngine:
@@ -607,16 +745,59 @@ class SearchEngine:
         return top_scores, top_slots, _host_moments(
             scores, self._hs_valid, self.lnl_flat, top_scores)
 
+    def _launch(self, rows, segs=None) -> torch.Tensor:
+        """Queue one kernel launch over the resident database: query rows
+        int32[m] (host), and with segs int32[S, 2] one sw_groups_packed
+        launch of S packed queries, else one sw_groups launch.  Returns
+        the int32 scores [S, n_slots] on the device (S = 1 without segs),
+        not read back."""
+        cfg, st = self.config, self.state
+        q = torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(
+            self.device)
+        if segs is None:
+            return sw_groups(st.residues, st.groups, q, self.submat_dev,
+                             cfg.open_gap, cfg.extend_gap, self.scratch,
+                             st.work).reshape(1, -1)
+        return sw_groups_packed(
+            st.residues, st.groups, q,
+            torch.from_numpy(np.ascontiguousarray(segs, np.int32)).to(
+                self.device), self.submat_dev, cfg.open_gap,
+            cfg.extend_gap, self.scratch, st.work).reshape(len(segs), -1)
+
+    def _score_groups(self, plan, reduce):
+        """Score a batch_plan group by group; returns [reduce(query
+        indices, int32 scores [len(indices), n_slots])] in plan order.
+        For a resident database the scores are on the device, not read
+        back, and a group is launched only after the group before it has
+        gone through reduce and been dropped: one group's scores are live
+        at a time, as the planner budgets (reduce keeps what it needs, a
+        top-k say, and not the scores).  Under host_stream one sweep of the
+        database scores every launch of the plan, and a group's scores are
+        host rows of the sweep's reused buffer."""
+        if self.mode == "host_stream":
+            swept = iter(self._host_stream_scores_multi(
+                [launch for _, launches in plan for launch in launches]))
+            out = []
+            for idxs, launches in plan:
+                parts = [next(swept) for _ in launches]
+                out.append(reduce(idxs, parts[0] if len(parts) == 1
+                                  else np.concatenate(parts)))
+            return out
+        out = []
+        for idxs, launches in plan:
+            parts = [self._launch(*launch) for launch in launches]
+            scores = parts[0] if len(parts) == 1 else torch.cat(parts)
+            del parts
+            out.append(reduce(idxs, scores))
+            del scores                   # freed before the next launch
+        return out
+
     def score_all(self, query) -> torch.Tensor:
         """int32 scores for every slot, in slot order, on the device."""
         if self.mode == "host_stream":
             return torch.from_numpy(self._host_stream_scores(
                 check_query(query, self.config)).copy()).to(self.device)
-        q = torch.from_numpy(check_query(query, self.config)).to(self.device)
-        return sw_groups(self.state.residues, self.state.groups, q,
-                         self.submat_dev, self.config.open_gap,
-                         self.config.extend_gap, self.scratch,
-                         self.state.work).reshape(-1)
+        return self._launch(check_query(query, self.config))[0]
 
     def _dispatch(self, query, query_title: str):
         """Queue one query's search on the device without blocking; returns
@@ -719,33 +900,7 @@ class SearchEngine:
         reference runs its steps in a thread pool against a remote compile
         service; here nvcc already builds the libraries in parallel.
         """
-        from oswald_tpu_torch.kernels import build
-        t0 = time.perf_counter()
-
-        def say(msg):
-            if log:
-                log(f"warmup [{time.perf_counter() - t0:5.1f}s] {msg}")
-
-        m = max(1, min(max_query_len, self.config.max_query_len))
-        loaded = []
-        if self.device.type == "cuda":
-            names = ["sw_groups", "sw_groups_packed"]
-            say(f"kernel libraries {', '.join(names)} in {build.build_dir()}")
-            build.build_all(names)
-            for name in names:
-                build.load(name)
-            loaded = names
-        say(f"one search of {m} residues")
-        self.search(np.full(m, DUMMY, np.int8))
-        if batch:
-            mb = max(1, min(m, self.config.batch_query_pack_rows // 2))
-            say(f"one batch of two queries of {mb} residues")
-            q = np.full(mb, DUMMY, np.int8)
-            self.search_many([q, q])
-        # both searches ended with their readback: the card is idle
-        self.metrics.add("warmup", time.perf_counter() - t0)
-        say("done")
-        return loaded
+        return warmup_engine(self, max_query_len, batch, log)
 
     def align(self, query, result: SearchResult):
         """Gapped alignments (traceback) of a SearchResult's hits: a host
@@ -763,23 +918,13 @@ class SearchEngine:
         single query, is search_stream.  Over-length queries fail before
         any search runs."""
         titles = titles or [f"query{i}" for i in range(len(queries))]
-        cap = self.config.max_query_len
-        for i, q in enumerate(queries):
-            if np.asarray(q).size > cap:
-                raise ValueError(
-                    f"query {i} length {np.asarray(q).size} exceeds the "
-                    f"engine's configured max_query_len {cap} — rebuild "
-                    f"with SearchConfig(max_query_len=...) / "
-                    f"--max-query-len")
+        check_lengths(queries, self.config)
         if not batch or len(queries) <= 1:
             return self.search_stream(queries, titles)
 
         t0 = time.perf_counter()
         results = [None] * len(queries)
         k = min(self.config.top, self.db.n_seqs)
-        st, cfg = self.state, self.config
-        bins, rest = mixed_pack_plan(cfg.batch_query_pack_rows, cfg.u_rows,
-                                     queries)
 
         def emit(idxs, top_scores, top_slots, mom):
             for row, i in enumerate(idxs):
@@ -787,36 +932,17 @@ class SearchEngine:
                     queries[i], titles[i], top_scores[row], top_slots[row],
                     tuple(m[row] for m in mom))
 
+        plan = batch_plan(self.config, queries)
         if self.mode == "host_stream":
-            # one sweep scores every launch of the plan on each slice
-            launches = [(q_packed, plan_segments(idxs, seg_map, used,
-                                                 cfg.u_rows, queries))
-                        for idxs, q_packed, seg_map, used in bins] + \
-                       [(check_query(queries[i], cfg), None) for i in rest]
-            groups = [idxs for idxs, *_ in bins] + [[i] for i in rest]
-            for idxs, scores in zip(
-                    groups, self._host_stream_scores_multi(launches)):
-                emit(idxs, *self._host_reduce(scores, k))
-            bins, rest = [], []
-        # two phases: every launch of the batch is queued before the first
-        # readback blocks
-        pending = []                     # (query indices, packed [Q, 2, .])
-        for idxs, q_packed, seg_map, used in bins:
-            segs = plan_segments(idxs, seg_map, used, cfg.u_rows, queries)
-            scores = sw_groups_packed(
-                st.residues, st.groups,
-                torch.from_numpy(q_packed).to(self.device),
-                torch.from_numpy(segs).to(self.device), self.submat_dev,
-                cfg.open_gap, cfg.extend_gap, self.scratch, st.work)
-            pending.append((idxs, _topk(scores.reshape(len(idxs), -1),
-                                        self.valid, self.lnl, k)))
-        if rest:
-            # queries over the pack budget: one launch each, back to back
-            # on the stream, then one top-k and one readback for all
-            scores = torch.stack([self.score_all(queries[i]) for i in rest])
-            pending.append((rest, _topk(scores, self.valid, self.lnl, k)))
-        for idxs, packed in pending:
-            emit(idxs, *_unpack_topk(packed.cpu().numpy()))
+            self._score_groups(plan, lambda idxs, scores: emit(
+                idxs, *self._host_reduce(scores, k)))
+        else:
+            # two phases: every launch of the batch is queued before the
+            # first readback blocks
+            pending = self._score_groups(plan, lambda idxs, scores: (
+                idxs, _topk(scores, self.valid, self.lnl, k)))
+            for idxs, packed in pending:
+                emit(idxs, *_unpack_topk(packed.cpu().numpy()))
         elapsed = time.perf_counter() - t0
         self.metrics.add("search_batch", elapsed)
         # every result carries the batch's wall time and batch_n: queries

@@ -12,9 +12,10 @@ artifact).
   .npy arrays memory-map, so a large database loads without being read
   whole.
 
-Packing is the numpy path only; the native C++ packer, the out-of-core
-preprocess and the import/export of the FPGA tool's format are not ported
-yet.
+Packing uses the native C++ packer (oswald_tpu_torch.io.native) when its
+library is available and numpy otherwise; io/stream.py is the out-of-core
+preprocess, and `import_reference_db`/`export_reference_db` convert from
+and to the FPGA tool OSWALD's `.desc/.info/.seq` format.
 """
 
 import bisect
@@ -132,16 +133,29 @@ def _round_up(x: int, q: int) -> int:
 
 def _pack_groups_impl(seqs_flat, lengths, offsets, order, n_groups,
                       group_Ls):
-    """Scatter sorted sequences into [L, 1024] lane-major groups: residues
-    are gathered into sorted order once, then each group is one numpy
-    scatter through a flat index (no Python per-slot loop)."""
+    """Scatter sorted sequences into [L, 1024] lane-major groups.
+
+    Residues are gathered into sorted order once; then the native C++
+    OpenMP packer fills every group when its library is available (unless
+    OSWALD_NO_NATIVE is set), else each group is one numpy scatter through
+    a flat index (no Python per-slot loop)."""
     n = len(order)
+    use_native = not os.environ.get("OSWALD_NO_NATIVE")
     sorted_lens = lengths[order]
     sorted_offs = np.concatenate([[0], np.cumsum(sorted_lens)])
     src_idx = (np.repeat(offsets[order], sorted_lens)
                + _ragged_arange(sorted_lens)) if n else \
         np.zeros(0, np.int64)
     sorted_flat = np.asarray(seqs_flat, np.int8)[src_idx]
+
+    if use_native:
+        from oswald_tpu_torch.io import native
+        if native.available():
+            group_starts = np.arange(n_groups + 1, dtype=np.int64) \
+                * GROUP_LANES
+            group_starts[-1] = n
+            return native.pack_groups(sorted_flat, sorted_offs,
+                                      group_starts, group_Ls)
 
     out = []
     for g in range(n_groups):
@@ -353,6 +367,94 @@ def save_db(db: PackedDB, out_path: str):
             "group_lanes": GROUP_LANES}
     with open(os.path.join(d, "meta.json"), "w") as f:
         json.dump(meta, f)
+
+
+def import_reference_db(base: str, verbose: bool = True) -> PackedDB:
+    """Import a database that the FPGA tool OSWALD preprocessed (its
+    `.desc`/`.info`/`.seq` triple) into a PackedDB, without the raw FASTA.
+
+    Format:
+      base.info   text: "<count> <residues> <max_title_len>"
+      base.desc   one title line per sequence, length-ascending order
+      base.seq    binary: uint16 lengths[count], then int8 residues
+                  (codes 0..22, dummy 23: this package's alphabet)
+    """
+    t0 = time.perf_counter()
+    with open(base + ".info") as f:
+        parts = f.read().split()
+    if len(parts) < 2:
+        raise ValueError(f"{base}.info: expected 'count residues "
+                         f"[max_title_len]', got {parts!r}")
+    count, D = int(parts[0]), int(parts[1])
+    with open(base + ".desc", "r", errors="replace") as f:
+        titles = [line.rstrip("\n") for line in f][:count]
+    if len(titles) != count:
+        raise ValueError(
+            f"{base}.desc holds {len(titles)} titles but {base}.info "
+            f"declares {count} sequences")
+    with open(base + ".seq", "rb") as f:
+        lengths = np.fromfile(f, dtype=np.uint16, count=count) \
+            .astype(np.int64)
+        seqs_flat = np.fromfile(f, dtype=np.int8, count=D)
+    if int(lengths.sum()) != D or seqs_flat.size != D:
+        raise ValueError(
+            f"{base}.seq is inconsistent with {base}.info: lengths sum "
+            f"{int(lengths.sum())}, residues read {seqs_flat.size}, "
+            f"declared {D}")
+    if seqs_flat.size and (seqs_flat.min() < 0 or seqs_flat.max() > DUMMY):
+        raise ValueError(
+            f"{base}.seq residue codes outside 0..{DUMMY} — not a "
+            "preprocessed OSWALD database?")
+    db = pack_sequences(seqs_flat, lengths, titles)
+    if verbose:
+        print(f"oswald-tpu-torch import: {db.n_seqs} sequences "
+              f"({db.n_residues} residues) from the OSWALD format "
+              f"{base}.desc/.info/.seq in {time.perf_counter() - t0:.2f}s")
+    return db
+
+
+def export_reference_db(db: PackedDB, base: str, verbose: bool = True):
+    """Export a PackedDB to OSWALD's `.desc`/`.info`/`.seq` triple, the
+    reverse of `import_reference_db`.
+
+    Writes `.desc` one title per line (length-ascending order), `.info`
+    "count residues max_title_len", `.seq` uint16 lengths then the
+    encoded int8 residues (codes 0..22).  The uint16 length field is the
+    format's cap: sequences over 65535 residues cannot be represented and
+    raise.
+    """
+    t0 = time.perf_counter()
+    lengths = np.asarray(db.lengths)
+    if lengths.size and int(lengths.max()) > np.iinfo(np.uint16).max:
+        raise ValueError(
+            f"the OSWALD .seq format stores lengths as uint16; "
+            f"sequence of length {int(lengths.max())} cannot be exported")
+    max_title = 0
+    with open(base + ".desc", "w") as f:
+        for t in db.titles:
+            t = str(t)
+            max_title = max(max_title, len(t))
+            f.write(t + "\n")
+    with open(base + ".info", "w") as f:
+        f.write(f"{db.n_seqs} {db.n_residues} {max_title}\n")
+    with open(base + ".seq", "wb") as f:
+        lengths.astype(np.uint16).tofile(f)
+        # groups hold 1024 consecutive sorted ids each (bins ascending),
+        # so walking bins/groups in order IS sorted order; one masked
+        # gather per group emits its residues slot-major without a
+        # per-sequence Python loop
+        for L in db.bin_lengths:
+            b = db.bins[L]
+            for g in range(b["seq"].shape[0]):
+                rows = np.asarray(b["seq"][g]).reshape(
+                    L, GROUP_LANES).T                   # [1024, L]
+                lens = np.asarray(b["len"][g]).reshape(GROUP_LANES)
+                mask = np.arange(L)[None, :] < lens[:, None]
+                rows[mask].astype(np.int8).tofile(f)
+    if verbose:
+        print(f"oswald-tpu-torch export: {db.n_seqs} sequences "
+              f"({db.n_residues} residues) -> OSWALD format "
+              f"{base}.desc/.info/.seq in {time.perf_counter() - t0:.2f}s")
 
 
 class LazyTitles:

@@ -1,9 +1,12 @@
 """FASTA parsing, vectorised with numpy (the port's own copy of
-oswald_tpu.io.fasta, without its native C++ fast path).
+oswald_tpu.io.fasta).
 
 A single-pass, whole-buffer parse: one `np.frombuffer` over the file,
 header and residue byte masks computed with array ops, per-record residue
-extents via `bincount` — no Python-level per-residue loop.
+extents via `bincount` — no Python-level per-residue loop.  The native C++
+scanner (oswald_tpu_torch.io.native) substitutes for it when its library is
+built; this module is the portable implementation and the correctness
+reference for it.
 """
 
 import numpy as np
@@ -138,11 +141,22 @@ def open_maybe_compressed(path: str):
     return f
 
 
-def parse_fasta(path: str):
-    """Parse a FASTA file; see parse_fasta_bytes.  Compressed input
-    (gzip/bzip2/xz) is decompressed transparently."""
+def parse_fasta(path: str, use_native: bool | None = None):
+    """Parse a FASTA file; see parse_fasta_bytes.
+
+    Uses the native C++ scanner (oswald_tpu_torch.io.native) when its
+    library is available, unless use_native=False or OSWALD_NO_NATIVE is
+    set.  Compressed input (gzip/bzip2/xz) is decompressed transparently.
+    """
+    import os
     with open_maybe_compressed(path) as f:
         data = f.read()
+    if use_native is None:
+        use_native = not os.environ.get("OSWALD_NO_NATIVE")
+    if use_native:
+        from oswald_tpu_torch.io import native
+        if native.available():
+            return native.parse_fasta_bytes(data)
     return parse_fasta_bytes(data)
 
 

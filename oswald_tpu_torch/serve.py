@@ -38,9 +38,20 @@ launches race for them.  Alignments run on the request threads
 service never moves work to another device: a failed coalesced dispatch is
 retried one request at a time on the same engine, and a request that still
 fails gets an HTTP 500.
+
+Pod serving (a world of more than one rank, `DistributedSearchEngine`):
+only rank 0 talks HTTP.  Each search runs collectives, so every rank must
+enter the same `search_many` with the same queries: rank 0's engine proxy
+first broadcasts the dispatcher's batch over the process group, and the
+other ranks run a mirror loop (`pod_worker_loop`).  Collectives run on the
+dispatcher thread only (warmup runs before it starts); request threads
+parse, align and serialise, none of which touches the process group.
+Closing the service drains the pending requests, then one more broadcast
+releases the workers.
 """
 
 import json
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -345,10 +356,112 @@ def make_server(service: SearchService, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), _make_handler(service))
 
 
+# --- pod (multi-rank) serving ----------------------------------------------
+#
+# The broadcast is two collectives from rank 0: an int64 header [op, batch
+# flag, byte count], then the encoded batch as a byte tensor of that size
+# (the reference broadcasts one fixed 4 MiB buffer).  A blocked worker is
+# the synchronisation.
+
+_POD_OP_SEARCH = 1
+_POD_OP_SHUTDOWN = 2
+
+
+def _pod_encode(enc) -> np.ndarray:
+    """[n, len_0..n-1 (int32 as 4 x int8), residues...] as int8."""
+    lens = np.asarray([len(q) for q in enc], np.int32)
+    head = np.concatenate([np.asarray([len(enc)], np.int32), lens])
+    return np.concatenate([head.view(np.int8)] +
+                          [np.asarray(q, np.int8) for q in enc])
+
+
+def _pod_decode(buf: np.ndarray):
+    """Inverse of _pod_encode: the list of queries (int8 arrays)."""
+    buf = np.asarray(buf, np.int8)
+    n = int(buf[:4].view(np.int32)[0])
+    lens = buf[4:4 + 4 * n].view(np.int32)
+    out, off = [], 4 + 4 * n
+    for length in lens:
+        out.append(buf[off:off + int(length)].copy())
+        off += int(length)
+    return out
+
+
+def _pod_broadcast(op: int, batch: bool = True, payload=None):
+    """Rank 0's side of one broadcast; the workers' side is _pod_receive."""
+    import torch
+    import torch.distributed as tdist
+    data = np.zeros(0, np.int8) if payload is None else payload
+    tdist.broadcast(torch.tensor([op, int(batch), data.size],
+                                 dtype=torch.int64), src=0)
+    if data.size:
+        tdist.broadcast(torch.from_numpy(np.ascontiguousarray(data)), src=0)
+
+
+def _pod_receive():
+    """(op, batch, queries) of rank 0's next broadcast."""
+    import torch
+    import torch.distributed as tdist
+    head = torch.zeros(3, dtype=torch.int64)
+    tdist.broadcast(head, src=0)
+    op, batch, size = (int(v) for v in head)
+    queries = []
+    if size:
+        buf = torch.empty(size, dtype=torch.int8)
+        tdist.broadcast(buf, src=0)
+        queries = _pod_decode(buf.numpy())
+    return op, bool(batch), queries
+
+
+class _PodBroadcastEngine:
+    """Rank 0's engine proxy: every search_many first broadcasts the batch
+    so that the worker ranks enter the same collectives; everything else
+    (config, align, db, metrics) passes through."""
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def search_many(self, queries, titles=None, batch: bool = True):
+        _pod_broadcast(_POD_OP_SEARCH, batch, _pod_encode(queries))
+        return self._engine.search_many(queries, titles, batch)
+
+
+def pod_worker_loop(engine) -> int:
+    """A worker rank's mirror loop: wait for rank 0's broadcast, run the
+    same search_many (its results are rank 0's to send; the collectives
+    inside are the point), return the number of queries served at the
+    shutdown broadcast.  A search that fails here fails alike on rank 0,
+    before any collective (the engine checks its queries first), and rank
+    0 answers the request with the error; the loop goes on."""
+    import traceback
+    served = 0
+    while True:
+        op, batch, queries = _pod_receive()
+        if op == _POD_OP_SHUTDOWN:
+            return served
+        try:
+            engine.search_many(queries, batch=batch)
+        except ValueError:
+            traceback.print_exc()
+        served += len(queries)
+
+
+def pod_shutdown_broadcast():
+    """Rank 0: release the workers (pairs with their waiting receive)."""
+    _pod_broadcast(_POD_OP_SHUTDOWN)
+
+
 def serve_forever(db, engine, host: str, port: int,
                   warmup_qlen: int | None = 512, warmup_jobs: int = 1):
     """CLI entry: warm the engine (kernel libraries, first searches), bind,
-    serve until interrupted."""
+    serve until interrupted.  In a world of more than one rank every rank
+    calls this with the same arguments (see _serve_forever_pod)."""
+    from oswald_tpu_torch.dist.bootstrap import world
+    if world()[1] > 1:
+        return _serve_forever_pod(db, engine, host, port, warmup_qlen)
     service = SearchService(db, engine)
     if warmup_qlen:
         t0 = time.perf_counter()
@@ -369,4 +482,44 @@ def serve_forever(db, engine, host: str, port: int,
     finally:
         httpd.server_close()
         service.close()
+    return 0
+
+
+def _serve_forever_pod(db, engine, host: str, port: int,
+                       warmup_qlen: int | None):
+    """Pod serving: rank 0 serves HTTP and broadcasts each dispatch, the
+    other ranks mirror it.  Warmup is collective, so every rank runs it
+    alike first."""
+    from oswald_tpu_torch.dist.bootstrap import world
+    rank, size = world()
+    if warmup_qlen:
+        t0 = time.perf_counter()
+        libs = engine.warmup(
+            warmup_qlen,
+            log=(lambda s: print(s, flush=True)) if rank == 0 else None)
+        if rank == 0:
+            print(f"warmup: loaded kernel libraries {libs} "
+                  f"in {time.perf_counter() - t0:.1f}s")
+    if rank != 0:
+        n = pod_worker_loop(engine)
+        print(f"oswald-tpu-torch pod worker rank {rank}: exiting after "
+              f"{n} queries", flush=True)
+        return 0
+    service = SearchService(db, _PodBroadcastEngine(engine))
+    httpd = make_server(service, host, port)
+    addr = httpd.server_address
+    print(f"oswald-tpu-torch serving {db.n_seqs} sequences "
+          f"({db.n_residues} residues) on {engine.device} at "
+          f"http://{addr[0]}:{addr[1]} [pod: {size} ranks]", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if threading.current_thread() is threading.main_thread():
+            # a second interrupt must not cut the release of the workers
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+        httpd.server_close()
+        service.close()           # drains the pending requests
+        pod_shutdown_broadcast()  # then releases the workers
     return 0

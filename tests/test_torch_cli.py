@@ -14,6 +14,9 @@ may differ by that step.
 """
 
 import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +28,8 @@ from oswald_tpu.cli import main as jax_main
 from oswald_tpu_torch.cli import main
 
 from conftest import random_protein
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -117,13 +122,53 @@ def test_search_text_report(fasta_db, capsys):
     ("search", ["--devices", "2"], "--devices > 1"),
     ("serve", ["--distributed"], "--distributed"),
 ])
-def test_unported_flags_exit_2(fasta_db, capsys, verb, flags, name):
-    query = ["-q", str(fasta_db / "q.fasta")] if verb == "search" else []
-    assert main([verb, *query, "-d", str(fasta_db / "db"), "--device", "cpu",
-                 *flags]) == 2
-    err = capsys.readouterr().err
-    assert err.startswith(f"oswald-tpu-torch: error: {name} is not yet "
-                          "ported")
+def test_unported_flags_exit_2(fasta_db, capsys, monkeypatch, tmp_path, verb,
+                               flags, name):
+    """These flags exited 2 until the distributed engine was ported (the
+    name is kept for the record); now they run.  `--distributed` outside
+    torchrun is a world of one rank: `search` prints the single-rank hits,
+    `serve` builds the single engine, and a --devices the process group
+    contradicts still exits 2.  `search --devices 2` starts two CPU ranks
+    (in a subprocess with its own timeout) whose rank 0 prints the hits of
+    --devices 1: hits exact, E-values as ln(E) at the tolerance of the
+    module docstring (the two ranks sum their moments exactly; the single
+    engine's float32 sum(S * lnL) differs from that by its rounding)."""
+    args = ["-d", str(fasta_db / "db"), "--device", "cpu", "-r", "5"]
+    query = ["-q", str(fasta_db / "q.fasta"), "--json"]
+    if verb == "serve":
+        from oswald_tpu_torch import serve
+        got = {}
+        monkeypatch.setattr(serve, "serve_forever",
+                            lambda db, engine, *a, **k: got.update(e=engine) or 0)
+        assert main(["serve", *args, "--port", "0", *flags]) == 0
+        assert type(got["e"]).__name__ == "SearchEngine"
+        return
+    assert main(["search", *query, *args]) == 0
+    want, _ = _json_lines(capsys.readouterr().out)
+    if name == "--distributed":
+        assert main(["search", *query, *args, *flags]) == 0
+        got, summary = _json_lines(capsys.readouterr().out)
+        assert got == want and summary["devices"] == 1
+        assert main(["search", *query, *args, *flags, "--devices", "3"]) == 2
+        assert "the process group has 1 ranks" in capsys.readouterr().err
+        return
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               XDG_CACHE_HOME=str(tmp_path / "xdg"))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run(
+        [sys.executable, "-m", "oswald_tpu_torch.cli", "search", *query,
+         *args, *flags], env=env, cwd=tmp_path, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got, summary = _json_lines(out.stdout)
+    assert summary["devices"] == 2 and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert [(h["score"], h["id"], h["title"]) for h in g["hits"]] == \
+            [(h["score"], h["id"], h["title"]) for h in w["hits"]]
+        np.testing.assert_allclose(np.log([h["evalue"] for h in g["hits"]]),
+                                   np.log([h["evalue"] for h in w["hits"]]),
+                                   rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("flags,msg", [
@@ -152,6 +197,7 @@ def test_info(capsys):
     out = capsys.readouterr().out
     assert out.startswith(f"PyTorch {torch.__version__}")
     assert "Devices (" in out
+    assert "Rank 0 of 1" in out
 
 
 def _hits(lines):
@@ -570,3 +616,70 @@ def test_serve_verb_builds_the_engine(fasta_db, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(["serve", "-d", str(fasta_db / "db")]) == 2
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+def _oswt_equal(a, b):
+    """Two .oswt artifacts, read by oswald_tpu.io.load_db: equal array by
+    array."""
+    from oswald_tpu.io import load_db as jax_load
+    x, y = jax_load(str(a)), jax_load(str(b))
+    assert (x.n_seqs, x.n_residues) == (y.n_seqs, y.n_residues)
+    assert list(x.titles) == list(y.titles)
+    assert x.bin_lengths == y.bin_lengths
+    np.testing.assert_array_equal(x.lengths, y.lengths)
+    for L in x.bin_lengths:
+        for k in ("seq", "len", "id"):
+            np.testing.assert_array_equal(np.asarray(x.bins[L][k]),
+                                          np.asarray(y.bins[L][k]))
+
+
+@pytest.mark.parametrize("flags", [[], ["--streaming"], ["--to-oswald"],
+                                   ["--streaming", "--to-oswald"]])
+def test_preprocess_verb_matches_jax_cli(fasta_db, tmp_path, capsys, flags):
+    """`preprocess` writes the .oswt (and with --to-oswald the
+    .desc/.info/.seq triple) that `python -m oswald_tpu.cli preprocess`
+    writes from the same FASTA."""
+    fa = str(fasta_db / "db.fasta")
+    assert main(["preprocess", "-i", fa, "-o", str(tmp_path / "p"),
+                 *flags]) == 0
+    assert jax_main(["preprocess", "-i", fa, "-o", str(tmp_path / "j"),
+                     *flags]) == 0
+    out = capsys.readouterr().out
+    assert "oswald-tpu-torch preprocess" in out
+    _oswt_equal(tmp_path / "p", tmp_path / "j")
+    if "--to-oswald" in flags:
+        for ext in (".desc", ".info", ".seq"):
+            assert (tmp_path / f"p{ext}").read_bytes() == \
+                (tmp_path / f"j{ext}").read_bytes()
+
+
+def test_preprocess_from_oswald_matches_jax_cli(fasta_db, tmp_path):
+    """--from-oswald imports the triple as the JAX CLI does, and the round
+    trip through --to-oswald gives the database back."""
+    fa = str(fasta_db / "db.fasta")
+    assert jax_main(["preprocess", "-i", fa, "-o", str(tmp_path / "src"),
+                     "--to-oswald"]) == 0
+    src = str(tmp_path / "src")
+    assert main(["preprocess", "-i", src, "-o", str(tmp_path / "p"),
+                 "--from-oswald"]) == 0
+    assert jax_main(["preprocess", "-i", src, "-o", str(tmp_path / "j"),
+                     "--from-oswald"]) == 0
+    _oswt_equal(tmp_path / "p", tmp_path / "j")
+    _oswt_equal(tmp_path / "p", tmp_path / "src")
+
+
+def test_preprocess_compressed_and_bad_input(fasta_db, tmp_path, capsys):
+    import gzip
+    gz = tmp_path / "db.fasta.gz"
+    gz.write_bytes(gzip.compress((fasta_db / "db.fasta").read_bytes()))
+    assert main(["preprocess", "-i", str(gz), "-o", str(tmp_path / "g")]) \
+        == 0
+    _oswt_equal(tmp_path / "g", fasta_db / "db")
+    bad = tmp_path / "bad.fasta"
+    bad.write_bytes(b"no headers here\n")
+    for flags in ([], ["--streaming"]):
+        assert main(["preprocess", "-i", str(bad), "-o",
+                     str(tmp_path / "b"), *flags]) == 2
+        assert "oswald-tpu-torch: error:" in capsys.readouterr().err
+    assert main(["preprocess", "-i", str(tmp_path / "none"), "-o",
+                 str(tmp_path / "n"), "--from-oswald"]) == 2

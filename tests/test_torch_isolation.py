@@ -62,6 +62,21 @@ service = serve.SearchService(db, engine)
 out = service.search({"query": "MKVLATGHWCE", "align": True})
 service.close()
 assert out["results"][0]["hits"][0]["alignment"]["q_aln"]
+import tempfile
+from oswald_tpu_torch.dist import DistributedSearchEngine, bootstrap, shutdown
+from oswald_tpu_torch.io import write_fasta, native
+from oswald_tpu_torch.io.stream import preprocess_db_streaming
+tmp = tempfile.mkdtemp()
+assert bootstrap(f"file://{tmp}/store", 1, 0) == (0, 1)
+dist = DistributedSearchEngine(db, SearchConfig(top=3), device="cpu")
+assert list(dist.search(oswald_tpu_torch.encode("MKVLATGHW")).scores) == \
+    list(res.scores)
+shutdown()
+write_fasta(tmp + "/in.fa", [f"s{i}" for i in range(50)], queries * 17)
+assert main(["preprocess", "-i", tmp + "/in.fa", "-o", tmp + "/o",
+             "--to-oswald"]) == 0
+assert preprocess_db_streaming(tmp + "/in.fa", tmp + "/s").n_seqs == 50
+assert native.available()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "oswald_tpu" or m.startswith("oswald_tpu."))
@@ -69,11 +84,14 @@ print("loaded:", bad[:5])
 """
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """CPU searches in every mode (resident, host_stream, auto through the
-    planner), a batch, every lab variant, and a served search with
-    alignments in a fresh interpreter load neither jax nor oswald_tpu."""
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    planner), a batch, every lab variant, a served search with alignments,
+    a distributed search at world size 1 and a preprocess (in-core with
+    --to-oswald and streaming, the native library built) in a fresh
+    interpreter load neither jax nor oswald_tpu."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               XDG_CACHE_HOME=str(tmp_path / "xdg"))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,

@@ -388,3 +388,142 @@ def test_planner_shared_parts_equal_jax(packed_pair):
     ours = planner.plan_profile_mode(db, hbm_bytes=1 << 40)
     assert (ours.mode, ours.db_bytes, ours.budget_bytes) == \
         (both.mode, both.db_bytes, both.budget_bytes)
+
+
+def _round_up(x, q):
+    return -(-x // q) * q
+
+
+def _brute_best(group_Ls, quanta, bin_cost):
+    """Exhaustive partition DP over a tiny input: mesh_bin_plan's oracle."""
+    best = [0.0] + [float("inf")] * len(group_Ls)
+    for j in range(1, len(group_Ls) + 1):
+        for i in range(j):
+            best[j] = min(best[j], best[i] + bin_cost + _round_up(
+                j - i, quanta) * group_Ls[j - 1] * 1024)
+    return best[-1]
+
+
+def test_mesh_bin_plan_equals_jax_and_brute_force(rng):
+    from oswald_tpu.dist import repack as jax_repack
+    from oswald_tpu_torch.dist import repack
+    for _ in range(20):
+        G = int(rng.integers(1, 40))
+        Ls = np.sort(rng.choice(np.arange(1, 40) * 32, size=G))
+        quanta = int(rng.choice([1, 2, 8, 16, 64]))
+        plan = repack.mesh_bin_plan(Ls, quanta)
+        assert plan == jax_repack.mesh_bin_plan(Ls, quanta)
+        cells = repack.plan_sharded_cells(Ls, quanta, plan)
+        assert cells == jax_repack.plan_sharded_cells(Ls, quanta, plan)
+        assert abs(cells + 262_144 * len(plan) -
+                   _brute_best(list(Ls), quanta, 262_144)) < 1e-6
+
+
+@pytest.mark.parametrize("quanta", [1, 2, 16])
+def test_repack_for_mesh_equals_jax(quanta):
+    """The re-cut of a database (bins, and every array of every bin) and
+    the per-group geometry equal the JAX package's."""
+    from oswald_tpu.dist import repack as jax_repack
+    from oswald_tpu.io import pack_sequences as jax_pack
+    from oswald_tpu_torch.dist import repack
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(1, 700, size=30_000)
+    flat = rng.integers(0, 23, size=int(lengths.sum())).astype(np.int8)
+    ref = jax_pack(flat, lengths, None)
+    ours = db.pack_sequences(flat, lengths, None)
+    np.testing.assert_array_equal(repack.group_geometry(ours),
+                                  jax_repack.group_geometry(ref))
+    a, b = repack.repack_for_mesh(ours, quanta), \
+        jax_repack.repack_for_mesh(ref, quanta)
+    assert a.bin_lengths == b.bin_lengths
+    assert (a is ours) == (b is ref)
+    for L in a.bin_lengths:
+        for k in ("seq", "len", "id"):
+            np.testing.assert_array_equal(np.asarray(a.bins[L][k]),
+                                          np.asarray(b.bins[L][k]))
+
+
+def _duplicate_plan(group_Ls, quanta, bin_cost=0):
+    """A plan that ends two bins inside one equal-length run."""
+    return [(0, 1), (1, len(group_Ls))]
+
+
+def test_repack_for_mesh_raises_on_duplicate_bin_length(monkeypatch):
+    from oswald_tpu_torch.dist import repack
+    lengths = np.full(3000, 40)
+    ours = db.pack_sequences(np.zeros(120_000, np.int8), lengths, None)
+    monkeypatch.setattr(repack, "mesh_bin_plan", _duplicate_plan)
+    with pytest.raises(ValueError, match="two bins one length"):
+        repack.repack_for_mesh(ours, 2)
+
+
+def test_repack_for_mesh_raises_under_python_O():
+    """The duplicate-length check survives python -O (the JAX package
+    asserts it)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    code = (
+        "import numpy as np\n"
+        "from oswald_tpu_torch.dist import repack\n"
+        "from oswald_tpu_torch.io import pack_sequences\n"
+        "d = pack_sequences(np.zeros(120000, np.int8), np.full(3000, 40))\n"
+        "repack.mesh_bin_plan = lambda g, q, b=0: [(0, 1), (1, len(g))]\n"
+        "try:\n    repack.repack_for_mesh(d, 2)\n"
+        "except ValueError:\n    print('raised')\n")
+    out = subprocess.run([sys.executable, "-O", "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "raised", out.stderr
+
+
+def test_scaling_projection_equals_jax():
+    from oswald_tpu.dist import model as jax_model
+    from oswald_tpu.io import pack_sequences as jax_pack
+    from oswald_tpu_torch.dist import model
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(1, 900, size=20_000)
+    flat = rng.integers(0, 23, size=int(lengths.sum())).astype(np.int8)
+    args = dict(k=10, qlen=300, t_single_s=0.04, t_mesh1_s=0.05,
+                n_list=(1, 2, 8, 64), t_batch_s=0.4, batch_n=10)
+    a = model.scaling_projection(db.pack_sequences(flat, lengths, None),
+                                 **args)
+    b = jax_model.scaling_projection(jax_pack(flat, lengths, None), **args)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert a.rows() == b.rows()
+    from oswald_tpu.engine.search import MOM_COLS
+    from oswald_tpu_torch.engine.search import MOM_COLS as engine_cols
+    assert model.MOM_COLS == engine_cols == MOM_COLS
+
+
+def test_import_export_reference_format_equal_jax(tmp_path):
+    """export_reference_db writes the bytes the JAX package writes, and
+    import_reference_db reads them back to the same database."""
+    from oswald_tpu.io import db as jax_db_mod
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(3, 200, size=500)
+    flat = rng.integers(0, 23, size=int(lengths.sum())).astype(np.int8)
+    titles = [f"seq{i} desc" for i in range(500)]
+    ours = db.pack_sequences(flat, lengths, titles)
+    db.export_reference_db(ours, str(tmp_path / "p"), verbose=False)
+    jax_db_mod.export_reference_db(
+        jax_db_mod.pack_sequences(flat, lengths, titles),
+        str(tmp_path / "j"), verbose=False)
+    for ext in (".desc", ".info", ".seq"):
+        assert (tmp_path / f"p{ext}").read_bytes() == \
+            (tmp_path / f"j{ext}").read_bytes()
+    back = db.import_reference_db(str(tmp_path / "p"), verbose=False)
+    ref = jax_db_mod.import_reference_db(str(tmp_path / "j"), verbose=False)
+    assert back.bin_lengths == ref.bin_lengths == ours.bin_lengths
+    assert list(back.titles) == list(ref.titles)
+    for L in back.bin_lengths:
+        for k in ("seq", "len", "id"):
+            np.testing.assert_array_equal(back.bins[L][k], ref.bins[L][k])
+            np.testing.assert_array_equal(back.bins[L][k], ours.bins[L][k])
+    with open(tmp_path / "p.info", "w") as f:
+        f.write(f"500 {int(lengths.sum()) + 7} 40")
+    with pytest.raises(ValueError, match="inconsistent"):
+        db.import_reference_db(str(tmp_path / "p"), verbose=False)
+    big = db.pack_sequences(np.zeros(70000, np.int8), [70000], ["giant"])
+    with pytest.raises(ValueError, match="uint16"):
+        db.export_reference_db(big, str(tmp_path / "big"), verbose=False)
