@@ -9,6 +9,19 @@ checkout's sources (one nvcc per source, all started together), then:
 
 1. probe: PyTorch, CUDA, nvcc, compute capability, Triton, and the card's
    name and power limit;
+   Then, before any measurement, the parity gate
+   (oswald_tpu_torch.utils.parity.run_parity, the port of the reference's
+   pre-stage) at the reference's hardware sizes: 4096 random subjects of
+   1-699 residues (seed 7), SearchEngine on the card against the
+   anti-diagonal wavefront oracle (oswald_tpu_torch/core/oracle.py, plain
+   PyTorch on the host CPU, no code shared with the kernels) for blosum62
+   10/2 and pam30 7/1 at query lengths 64, 65, 512 (every subject) and
+   5478 (256 sampled subjects), exact int32 equality of score_all over the
+   valid slots, and search_many of 8 mixed short queries (one packed
+   launch) against search one by one; 24 checks, each printed with the
+   engine's and the oracle's seconds and the card.  Any mismatch fails the
+   run; the gate's 24 sw_groups and 2 sw_groups_packed launches count in
+   the kernels record;
 2. database: a SwissProt-shaped synthetic corpus of 570,000 sequences with
    one planted homolog of a 512-residue query, packed and moved to the card
    by SearchEngine(db, device="cuda");
@@ -178,6 +191,8 @@ SAME_CODE_RTOL = 0.03
 # phase 9: client threads, and the single-client latency run's requests
 SERVE_CLIENTS = 8
 SERVE_SINGLE_REQUESTS = 20
+# the parity gate: the reference's hardware sizes (bench.py's pre-stage)
+PARITY_N, PARITY_LMAX, PARITY_TITIN = 4096, 700, 256
 # phases 10-11: limits of the processes they start, in seconds
 PREPROCESS_TIMEOUT_S = 300
 RANK_TIMEOUT_S = 300
@@ -263,6 +278,29 @@ def probe():
                 raise AssertionError(f"{name} spills registers: "
                                      f"{line.strip()}")
     return smi
+
+
+def parity_gate(card):
+    """The parity gate, right after the build.  Returns {kernel:
+    launches} of its searches; raises on any mismatch."""
+    from oswald_tpu_torch.kernels import sw_lanes
+    from oswald_tpu_torch.utils.parity import run_parity
+    sw_lanes.launches = sw_lanes.launches_packed = 0
+    out = run_parity(n=PARITY_N, lmax=PARITY_LMAX,
+                     titin_sample=PARITY_TITIN,
+                     log=lambda msg: say(f"{msg} [{card}]"),
+                     device=torch.device("cuda", 0), oracle_device="cpu")
+    launched = {"sw_groups": sw_lanes.launches,
+                "sw_groups_packed": sw_lanes.launches_packed}
+    say(f"parity: {json.dumps(out)}, launches {launched}, oracle on the "
+        f"host CPU [{card}]")
+    if out["parity"] != "ok" or out["checks"] != 24 or \
+            out["backend"] != "cuda":
+        raise AssertionError(f"the parity gate failed: {out}")
+    # per matrix: 4 score_all and 8 single searches, one packed launch
+    if launched != {"sw_groups": 24, "sw_groups_packed": 2}:
+        raise AssertionError(f"the parity gate launched {launched}")
+    return launched
 
 
 def make_database(n_seqs, seed):
@@ -1630,9 +1668,10 @@ def distributed(db, engine, queries, mixed, uniform, db_path, card):
     return {k: a[k] + b[k] for k in a}
 
 
-def run(device, n_seqs, card, seed=SEED):
+def run(device, n_seqs, card, parity_launches, seed=SEED):
     """Phases 2-11 on `device` (`card` labels the times); returns the
-    kernels record."""
+    kernels record, whose launches include the parity gate's
+    (`parity_launches`)."""
     from oswald_tpu_torch.engine import SearchConfig, SearchEngine
     from oswald_tpu_torch.io.synth import realistic_residues
     from oswald_tpu_torch.utils.metrics import gcups
@@ -1700,14 +1739,15 @@ def run(device, n_seqs, card, seed=SEED):
     return {"kernels": [
         {"name": "sw_groups", "source": SOURCES["sw_groups"],
          "replaces": REPLACES,
-         "launches": launches + batch_launches["sw_groups"] +
-         hs_launches["sw_groups"] + serve_launches["sw_groups"] +
-         dist_launches["sw_groups"],
+         "launches": parity_launches["sw_groups"] + launches +
+         batch_launches["sw_groups"] + hs_launches["sw_groups"] +
+         serve_launches["sw_groups"] + dist_launches["sw_groups"],
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": b_ms, "bound_by": b_by, **common},
         {"name": "sw_groups_packed", "source": SOURCES["sw_groups_packed"],
          "replaces": REPLACES,
-         "launches": batch_launches["sw_groups_packed"] +
+         "launches": parity_launches["sw_groups_packed"] +
+         batch_launches["sw_groups_packed"] +
          hs_launches["sw_groups_packed"] +
          serve_launches["sw_groups_packed"] +
          dist_launches["sw_groups_packed"],
@@ -1742,7 +1782,8 @@ def main():
     enable_compile_cache(str(CHECKOUT_BUILD))
     smi = probe()
     say(smi)
-    record = run(torch.device("cuda", 0), N_SEQS, smi)
+    parity_launches = parity_gate(smi)
+    record = run(torch.device("cuda", 0), N_SEQS, smi, parity_launches)
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

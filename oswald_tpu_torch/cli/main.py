@@ -554,7 +554,7 @@ def _say_native():
         print(f"{PROG} preprocess: native I/O off (OSWALD_NO_NATIVE)",
               file=sys.stderr)
     elif native.available():
-        print(f"{PROG} preprocess: native I/O on ({native.loaded_from})",
+        print(f"{PROG} preprocess: native I/O on ({native.loaded_from()})",
               file=sys.stderr)
     else:
         why = native.build_log.strip().splitlines()

@@ -33,14 +33,14 @@ CXX_FLAGS = ["-O3", "-fPIC", "-fopenmp", "-Wall", "-Wextra", "-shared"]
 # another version is refused (the numpy path runs) instead of diverging
 _EXPECTED_VERSION = 5
 
+# the loaded library, None until one loads; the file it came from is
+# `_lib.path` (set by _bind), so the two cannot disagree
 _lib = None
 _build_attempted = False
 _lock = threading.Lock()
 # why the library is not available, when it is not (the compiler's output,
 # or the loader's error), for callers that must say so
 build_log = ""
-# the file the loaded library came from
-loaded_from = None
 
 
 def library_path() -> Path:
@@ -93,8 +93,15 @@ def _build(out: Path):
             os.remove(tmp)
 
 
+def loaded_from():
+    """The file the loaded library came from, or None when none is
+    loaded."""
+    lib = _lib
+    return None if lib is None else lib.path
+
+
 def _load():
-    global _lib, _build_attempted, build_log, loaded_from
+    global _lib, _build_attempted, build_log
     with _lock:
         if _lib is not None:
             return _lib
@@ -113,15 +120,13 @@ def _load():
             _build(path)
         if path.exists():
             _lib = _bind(path)
-            if _lib is not None:
-                loaded_from = path
         return _lib
 
 
 def _bind(path: Path):
-    """The loaded library with every entry point declared, or None for a
-    library that does not load or has another version (build_log says
-    which)."""
+    """The loaded library with every entry point declared and `path` the
+    file it came from, or None for a library that does not load or has
+    another version (build_log says which)."""
     global build_log
     try:
         lib = ctypes.CDLL(str(path))
@@ -171,6 +176,7 @@ def _bind(path: Path):
     lib.oswald_fasta_execute.argtypes = [
         c_u8p, ctypes.c_int64, ctypes.c_int, c_i64p, c_i64p, c_i64p, c_i64p,
         c_i8p, c_i64p, c_i64p, c_i64p, c_u8p]
+    lib.path = path
     return lib
 
 

@@ -5,8 +5,9 @@ chained over every column chunk of every bin: for every lane of every group
 it returns the int32 score-only affine-gap Smith-Waterman score of the
 query against that lane's subject, in one call.  On a CUDA tensor it
 launches the hand-written kernel `csrc/sw_groups.cu` (design notes there);
-on a CPU tensor it runs `sw_groups_ref`, the plain PyTorch version with the
-same signature.
+on a CPU tensor it computes what `sw_groups_ref`, the plain PyTorch version
+with the same signature, computes, over the lanes that hold a residue only
+(`_sw_lanes_live`).
 
 Inputs (all on one device, contiguous):
   residues  int8[C, 8, 128]     packed columns of every group, back to back
@@ -29,7 +30,8 @@ one call.  It takes `q_packed int32[m_tot]` (the packed rows) and
 `segs int32[S, 2]` ((first row, row count) of each query in `q_packed`, on
 the same device) in place of `query`, and returns int32[S, G, 8, 128].  On
 a CUDA tensor it launches `csrc/sw_groups_packed.cu`; on a CPU tensor it
-runs `sw_groups_packed_ref`.
+runs the CPU branch of `sw_groups` on each segment, as
+`sw_groups_packed_ref` runs `sw_groups_ref`.
 
 `sw_groups_tiled_ref` and `sw_groups_packed_tiled_ref` are plain PyTorch too,
 but carry out the kernels' own decomposition (`csrc/sw_tile.cuh`): the items
@@ -44,6 +46,7 @@ import weakref
 import numpy as np
 import torch
 
+from oswald_tpu_torch.alphabet import DUMMY
 from oswald_tpu_torch.kernels import build
 
 GROUP_SHAPE = (8, 128)
@@ -274,8 +277,9 @@ def sw_groups(residues, groups, query, submat, open_gap: int,
     global launches
     _check(residues, groups, query, submat, scratch, work=work)
     if residues.device.type == "cpu":
-        return sw_groups_ref(residues, groups, query, submat, open_gap,
-                             extend_gap, scratch)
+        return score_groups_by_length(
+            residues, groups, lambda cols: _sw_lanes_live(
+                cols, query, submat, open_gap, extend_gap))
     out, launched = _launch("sw_groups", residues, groups, query, None,
                             submat, open_gap, extend_gap, scratch, work)
     launches += launched
@@ -290,8 +294,9 @@ def sw_groups_packed(residues, groups, q_packed, segs, submat,
     global launches_packed
     _check(residues, groups, q_packed, submat, scratch, segs, work)
     if residues.device.type == "cpu":
-        return sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
-                                    open_gap, extend_gap, scratch)
+        return torch.stack([sw_groups(residues, groups, q_packed[r0:r0 + n],
+                                      submat, open_gap, extend_gap)
+                            for r0, n in _segments(q_packed, segs)])
     out, launched = _launch("sw_groups_packed", residues, groups,
                             q_packed, segs, submat, open_gap, extend_gap,
                             scratch, work)
@@ -340,6 +345,28 @@ def sw_lanes_ref(cols, query, submat, open_gap: int, extend_gap: int):
     return best
 
 
+def _sw_lanes_live(cols, query, submat, open_gap: int, extend_gap: int):
+    """`sw_lanes_ref` over the lanes that hold a residue.  A lane of DUMMY
+    alone (a group's padding) scores 0 where DUMMY scores 0 against every
+    query residue and neither gap cost is negative: no cell of it can rise
+    above 0.  The CPU branch of the wrappers scores so, and a small
+    database costs its real lanes only; `sw_lanes_ref`, the plain version
+    the kernels are held to, stays one path."""
+    sm = submat.to(device=cols.device, dtype=torch.int32)
+    q = query.to(device=cols.device, dtype=torch.long)
+    if min(open_gap + extend_gap, extend_gap) >= 0 and \
+            not sm[q, DUMMY].any():
+        live = (cols != DUMMY).any(dim=0)
+        if not live.all():
+            best = torch.zeros(cols.shape[1], dtype=torch.int32,
+                               device=cols.device)
+            if live.any():
+                best[live] = sw_lanes_ref(cols[:, live], query, submat,
+                                          open_gap, extend_gap)
+            return best
+    return sw_lanes_ref(cols, query, submat, open_gap, extend_gap)
+
+
 def score_groups_by_length(residues, groups, score_cols):
     """int32[G, 8, 128] scores of every group of the table, from
     `score_cols(cols)`, which maps int8[L, lanes] subject columns to
@@ -381,15 +408,21 @@ def sw_groups_packed_ref(residues, groups, q_packed, segs, submat,
     """Plain PyTorch version of `sw_groups_packed`: `sw_groups_ref` on each
     segment's rows in turn; `scratch` is ignored."""
     _check(residues, groups, q_packed, submat, scratch, segs)
-    out = []
-    for s, (r0, n) in enumerate(segs.tolist()):
+    return torch.stack([sw_groups_ref(residues, groups, q_packed[r0:r0 + n],
+                                      submat, open_gap, extend_gap)
+                        for r0, n in _segments(q_packed, segs)])
+
+
+def _segments(q_packed, segs):
+    """(first row, row count) of each segment, each checked to lie inside
+    `q_packed`."""
+    out = segs.tolist()
+    for s, (r0, n) in enumerate(out):
         if r0 < 0 or n < 1 or r0 + n > q_packed.numel():
             raise ValueError(f"sw_groups: segment {s} (row {r0}, {n} rows) "
                              f"lies outside the {q_packed.numel()} packed "
                              f"rows")
-        out.append(sw_groups_ref(residues, groups, q_packed[r0:r0 + n],
-                                 submat, open_gap, extend_gap))
-    return torch.stack(out)
+    return out
 
 
 def _engine_step(diag, s, ee, f_in, oe, e, bias):

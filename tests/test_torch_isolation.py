@@ -77,6 +77,11 @@ assert main(["preprocess", "-i", tmp + "/in.fa", "-o", tmp + "/o",
              "--to-oswald"]) == 0
 assert preprocess_db_streaming(tmp + "/in.fa", tmp + "/s").n_seqs == 50
 assert native.available()
+from oswald_tpu_torch.utils.parity import run_parity
+out = run_parity(n=8, lmax=12, titin_sample=1, device="cpu")
+assert out["parity"] == "ok" and out["checks"] == 24, out
+assert "oswald_tpu_torch.utils.parity" in sys.modules
+assert "oswald_tpu_torch.core.oracle" in sys.modules
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "oswald_tpu" or m.startswith("oswald_tpu."))
@@ -87,9 +92,10 @@ print("loaded:", bad[:5])
 def test_port_never_imports_jax(tmp_path):
     """CPU searches in every mode (resident, host_stream, auto through the
     planner), a batch, every lab variant, a served search with alignments,
-    a distributed search at world size 1 and a preprocess (in-core with
-    --to-oswald and streaming, the native library built) in a fresh
-    interpreter load neither jax nor oswald_tpu."""
+    a distributed search at world size 1, a preprocess (in-core with
+    --to-oswald and streaming, the native library built) and a run of the
+    parity gate with its oracle in a fresh interpreter load neither jax nor
+    oswald_tpu."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XDG_CACHE_HOME=str(tmp_path / "xdg"))
     env["PYTHONPATH"] = os.pathsep.join(
@@ -102,7 +108,8 @@ def test_port_never_imports_jax(tmp_path):
 
 def _port_sources():
     files = sorted((REPO / "oswald_tpu_torch").rglob("*.py"))
-    assert files
+    for part in ("core/oracle.py", "utils/parity.py"):
+        assert REPO / "oswald_tpu_torch" / part in files
     return files + [REPO / "chip_smoke.py"]
 
 

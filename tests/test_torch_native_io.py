@@ -12,6 +12,14 @@ from oswald_tpu_torch.alphabet import ALPHABET
 from oswald_tpu_torch.io import fasta, native, pack_sequences
 
 
+def _fresh_loader(mp):
+    """Reset all of the loader's state through `mp` (a MonkeyPatch), which
+    puts it back at teardown: no library, no build attempted, no log."""
+    mp.setattr(native, "_lib", None)
+    mp.setattr(native, "_build_attempted", False)
+    mp.setattr(native, "build_log", "")
+
+
 @pytest.fixture(scope="module", autouse=True)
 def own_kernel_cache(tmp_path_factory):
     """Build the library into this module's own kernel directory (once)."""
@@ -20,8 +28,7 @@ def own_kernel_cache(tmp_path_factory):
         mp.setenv("XDG_CACHE_HOME", str(tmp_path_factory.mktemp("xdg")))
         mp.delenv("OSWALD_TPU_TORCH_COMPILE_CACHE", raising=False)
         mp.setattr(compile_cache, "_enabled_dir", None)
-        mp.setattr(native, "_lib", None)
-        mp.setattr(native, "_build_attempted", False)
+        _fresh_loader(mp)
         yield
 
 
@@ -138,8 +145,7 @@ def test_a_compiler_without_openmp_falls_back_to_the_next(tmp_path,
     monkeypatch.setenv("CXX", str(bad))
     assert native._compilers()[:2] == [str(bad), "g++"]
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "fresh-cache"))
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_build_attempted", False)
+    _fresh_loader(monkeypatch)
     assert native.available()
     assert "libgomp.spec" in native.build_log and "g++ -O3" in \
         native.build_log
@@ -151,8 +157,7 @@ def test_no_compiler_falls_back_to_numpy(tmp_path, rng, monkeypatch):
     monkeypatch.setattr(native, "_compilers",
                         lambda: [str(tmp_path / "no-such-compiler")])
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "empty-cache"))
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_build_attempted", False)
+    _fresh_loader(monkeypatch)
     assert not native.available()
     assert "no-such-compiler" in native.build_log
     data = _random_fasta(rng, 10)
@@ -175,11 +180,37 @@ def test_preprocess_says_which_io_path_it_took(tmp_path, rng, capsys,
         == 0
     assert f"native I/O on ({native.library_path()})" in \
         capsys.readouterr().err
-    assert native.loaded_from == native.library_path()
+    assert native.loaded_from() == native.library_path()
     monkeypatch.setenv("OSWALD_NO_NATIVE", "1")
     assert main(["preprocess", "-i", str(fa), "-o", str(tmp_path / "b"),
                  "--streaming"]) == 0
     assert "native I/O off (OSWALD_NO_NATIVE)" in capsys.readouterr().err
+
+
+def test_preprocess_names_the_loaded_library_after_a_swap(tmp_path, rng,
+                                                          capsys):
+    """A library loaded from another directory and swapped out again (as
+    test_a_compiler_without_openmp_falls_back_to_the_next does) leaves no
+    stale path: `preprocess` names the library that is loaded."""
+    from oswald_tpu_torch.cli.main import main
+    from oswald_tpu_torch.utils import compile_cache
+    assert native.available()
+    before = native.loaded_from()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("XDG_CACHE_HOME", str(tmp_path / "other-cache"))
+        mp.setattr(compile_cache, "_enabled_dir", None)
+        _fresh_loader(mp)
+        assert native.available()
+        other = native.loaded_from()
+        assert other == native.library_path() != before
+        assert str(other).startswith(str(tmp_path / "other-cache"))
+    assert native.loaded_from() == before == native.library_path()
+    fa = tmp_path / "db.fasta"
+    fa.write_bytes(_random_fasta(rng, 5))
+    assert main(["preprocess", "-i", str(fa), "-o", str(tmp_path / "a")]) \
+        == 0
+    err = capsys.readouterr().err
+    assert f"native I/O on ({before})" in err and str(other) not in err
 
 
 def test_missing_source_turns_native_off_and_says_why(tmp_path, capsys,
@@ -187,9 +218,7 @@ def test_missing_source_turns_native_off_and_says_why(tmp_path, capsys,
     """Without the repository's source beside the package (an installed
     copy) the numpy path runs, and one stderr line says why."""
     monkeypatch.setattr(native, "SOURCE", tmp_path / "oswald_io.cpp")
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_build_attempted", False)
-    monkeypatch.setattr(native, "build_log", "")
+    _fresh_loader(monkeypatch)
     assert not native.available()
     assert "oswald_io.cpp is missing" in native.build_log
     assert "native I/O off" in capsys.readouterr().err

@@ -16,14 +16,17 @@ import oswald_tpu_torch
 from oswald_tpu import alphabet as jax_alphabet
 from oswald_tpu import stats as jax_stats
 from oswald_tpu import submat as jax_submat
+from oswald_tpu.core import oracle as jax_oracle
 from oswald_tpu.engine.search import _db_len_stats as jax_db_len_stats
 from oswald_tpu.io import db as jax_db
 from oswald_tpu.io import fasta as jax_fasta
 from oswald_tpu.io import synth as jax_synth
 from oswald_tpu.utils import metrics as jax_metrics
+from oswald_tpu.utils import parity as jax_parity
 from oswald_tpu_torch import alphabet, stats, submat
 from oswald_tpu_torch.io import db, fasta, synth
-from oswald_tpu_torch.utils import hostmem, metrics
+from oswald_tpu_torch.core import oracle
+from oswald_tpu_torch.utils import hostmem, metrics, parity
 
 from conftest import random_protein
 
@@ -51,6 +54,31 @@ def test_submat_equals_jax(name):
     assert ours.dtype == theirs.dtype and ours.shape == (24, 24)
     np.testing.assert_array_equal(ours, theirs)
     np.testing.assert_array_equal(submat.get_submat(name.upper()), theirs)
+
+
+@pytest.mark.parametrize("name,og,eg", [("blosum62", 10, 2), ("pam30", 7, 1),
+                                        ("blosum45", 0, 0)])
+def test_sw_score_numpy_equals_jax(name, og, eg):
+    rng = np.random.default_rng(og)
+    sm = submat.get_submat(name)
+    for m, n in ((1, 1), (1, 30), (25, 1), (40, 57)):
+        a, b = random_protein(rng, m), random_protein(rng, n)
+        got = oracle.sw_score_numpy(a, b, sm, og, eg)
+        assert type(got) is int
+        assert got == jax_oracle.sw_score_numpy(a, b, sm, og, eg)
+
+
+def test_oracle_layout_equals_jax():
+    """The parity gate's subject matrix: length-ascending with a stable
+    sort (many equal lengths here), DUMMY-padded, int32."""
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(1, 12, size=40)
+    seqs = [random_protein(rng, int(l)) for l in lengths]
+    (bs, ns), (jbs, jns) = (parity._oracle_layout(seqs, lengths),
+                            jax_parity._oracle_layout(seqs, lengths))
+    assert bs.dtype == jbs.dtype == ns.dtype == jns.dtype == np.int32
+    np.testing.assert_array_equal(bs, jbs)
+    np.testing.assert_array_equal(ns, jns)
 
 
 def test_submat_unknown_name_raises():

@@ -304,6 +304,36 @@ def test_sw_lanes_ref_matches_numpy_oracle():
         assert int(got[0]) == sw_score_numpy(q, s, sm, og, eg), (og, eg)
 
 
+@pytest.mark.parametrize("dummy_score", [0, 3])
+def test_cpu_branch_skips_padding_lanes(dummy_score):
+    """Lanes of DUMMY alone (a group's padding) among real ones: with the
+    shipped matrices DUMMY scores 0, and the CPU branch skips them and
+    scores them 0; under a matrix where DUMMY scores 3 it computes them.
+    Either way every lane equals the numpy oracle and sw_lanes_ref, and
+    sw_groups on CPU tensors equals sw_groups_ref."""
+    rng = np.random.default_rng(12)
+    sm = get_submat("pam30").astype(np.int32)
+    sm[DUMMY, :] = sm[:, DUMMY] = dummy_score
+    L, m = 40, 33
+    cols = np.full((L, 9), DUMMY, np.int64)
+    for lane in (0, 3, 4, 8):
+        n = int(rng.integers(1, L + 1))
+        cols[:n, lane] = random_protein(rng, n)
+    q = random_protein(rng, m)
+    args = (torch.from_numpy(q.astype(np.int32)), torch.from_numpy(sm), 7,
+            1)
+    want = [sw_score_numpy(q, cols[:, k], sm, 7, 1) for k in range(9)]
+    assert sw_lanes._sw_lanes_live(torch.from_numpy(cols),
+                                   *args).tolist() == want
+    assert sw_lanes_ref(torch.from_numpy(cols), *args).tolist() == want
+    assert any(want[k] for k in (1, 2, 5, 6, 7)) == (dummy_score != 0)
+    group = _random_bin(rng, 2, L)
+    group[1, :, 4:] = DUMMY
+    tab = _torch_args([group], q, sm)
+    np.testing.assert_array_equal(sw_groups(*tab, 7, 1).numpy(),
+                                  sw_groups_ref(*tab, 7, 1).numpy())
+
+
 def _good_args():
     rng = np.random.default_rng(3)
     return list(_torch_args([_random_bin(rng, 1, 32)],
