@@ -12,6 +12,10 @@ call each.  Every launch of the batch is queued before the first readback
 blocks, and each bin is read back once.  `search_stream` keeps queries
 apart but reads `stream_readback_window` of them back at a time.
 
+`search_many`'s time is split into the spans of ENGINE_PHASES
+(`utils.metrics.Metrics.phase`, in `SearchEngine.metrics`): each is a
+record_function range of the same name while torch.profiler records.
+
 `profile_mode` picks where the database lives.  `precompute` and `stream`
 are the one resident path above (the kernels read the 24x24 matrix, so
 there is no profile to precompute); `host_stream` keeps the database on the
@@ -156,8 +160,26 @@ class SearchResult:
     bit_scores: np.ndarray | None = None   # float64[k]
     stats: object | None = None            # stats.ScoreStats
 
-    def per_query_elapsed(self) -> float:
-        return self.elapsed / max(self.batch_n, 1)
+
+# the spans (Metrics.phase) that split search_many's time, in the order
+# they run, each recorded once a call, a group or a readback window:
+# engine.plan (check_lengths, batch_plan), engine.launch (the query rows'
+# copy to the device, the launches, the top-k with the moments),
+# engine.readback (each blocking copy back) and engine.results (unpack,
+# statistics, titles).  Under host_stream a sweep is one engine.launch and
+# its host top-k is in engine.results.
+ENGINE_PHASES = ("engine.plan", "engine.launch", "engine.readback",
+                 "engine.results")
+
+
+def _load(launches):
+    """An engine.launch span's args: the queries and query residues of
+    launches [(query rows, segs int32[S, 2] or None)]."""
+    return {"queries": sum(1 if segs is None else len(segs)
+                           for _, segs in launches),
+            "residues": int(sum(np.asarray(rows).size if segs is None
+                                else segs[:, 1].sum()
+                                for rows, segs in launches))}
 
 
 # packed trailing moment columns: [sum, sumsq, slnl, T1] in row 0 and
@@ -775,21 +797,25 @@ class SearchEngine:
         database scores every launch of the plan, and a group's scores are
         host rows of the sweep's reused buffer."""
         if self.mode == "host_stream":
-            swept = iter(self._host_stream_scores_multi(
-                [launch for _, launches in plan for launch in launches]))
+            every = [launch for _, launches in plan for launch in launches]
+            with self.metrics.phase("engine.launch", lambda: _load(every)):
+                swept = iter(self._host_stream_scores_multi(every))
             out = []
             for idxs, launches in plan:
                 parts = [next(swept) for _ in launches]
-                out.append(reduce(idxs, parts[0] if len(parts) == 1
-                                  else np.concatenate(parts)))
+                with self.metrics.phase("engine.results"):
+                    out.append(reduce(idxs, parts[0] if len(parts) == 1
+                                      else np.concatenate(parts)))
             return out
         out = []
         for idxs, launches in plan:
-            parts = [self._launch(*launch) for launch in launches]
-            scores = parts[0] if len(parts) == 1 else torch.cat(parts)
-            del parts
-            out.append(reduce(idxs, scores))
-            del scores                   # freed before the next launch
+            with self.metrics.phase("engine.launch",
+                                    lambda: _load(launches)):
+                parts = [self._launch(*launch) for launch in launches]
+                scores = parts[0] if len(parts) == 1 else torch.cat(parts)
+                del parts
+                out.append(reduce(idxs, scores))
+                del scores               # freed before the next launch
         return out
 
     def score_all(self, query) -> torch.Tensor:
@@ -858,11 +884,14 @@ class SearchEngine:
         W = max(self.config.stream_readback_window, 1)
         results, prev = [], None
         for lo in range(0, len(queries), W):
-            grp = [self._dispatch(q, t)
-                   for q, t in zip(queries[lo:lo + W], titles[lo:lo + W])]
-            # host_stream queries are finished already: nothing to stack
-            stacked = torch.stack([p[3] for p in grp]) \
-                if self.mode != "host_stream" else None
+            window = queries[lo:lo + W]
+            with self.metrics.phase("engine.launch", lambda: _load(
+                    [(q, None) for q in window])):
+                grp = [self._dispatch(q, t)
+                       for q, t in zip(window, titles[lo:lo + W])]
+                # host_stream queries are finished already: nothing to stack
+                stacked = torch.stack([p[3] for p in grp]) \
+                    if self.mode != "host_stream" else None
             if prev is not None:
                 results.extend(self._finish_group(*prev))
             prev = (grp, stacked)
@@ -874,9 +903,12 @@ class SearchEngine:
         """Finish one readback window: one blocking transfer of the stack,
         then each query's result from its own rows."""
         if stacked is None:
-            return [self._finish(p) for p in grp]
-        big = stacked.cpu().numpy()              # the one window readback
-        return [self._finish(p, big[i]) for i, p in enumerate(grp)]
+            with self.metrics.phase("engine.results"):
+                return [self._finish(p) for p in grp]
+        with self.metrics.phase("engine.readback"):
+            big = stacked.cpu().numpy()          # the one window readback
+        with self.metrics.phase("engine.results"):
+            return [self._finish(p, big[i]) for i, p in enumerate(grp)]
 
     def warmup(self, max_query_len: int = 512, batch: bool = True,
                log=None, jobs: int = 1):
@@ -917,12 +949,15 @@ class SearchEngine:
         too long to pack run one sw_groups launch each.  batch=False, or a
         single query, is search_stream.  Over-length queries fail before
         any search runs."""
+        t0 = time.perf_counter()
         titles = titles or [f"query{i}" for i in range(len(queries))]
-        check_lengths(queries, self.config)
-        if not batch or len(queries) <= 1:
+        batched = batch and len(queries) > 1
+        with self.metrics.phase("engine.plan"):
+            check_lengths(queries, self.config)
+            plan = batch_plan(self.config, queries) if batched else None
+        if not batched:
             return self.search_stream(queries, titles)
 
-        t0 = time.perf_counter()
         results = [None] * len(queries)
         k = min(self.config.top, self.db.n_seqs)
 
@@ -932,7 +967,6 @@ class SearchEngine:
                     queries[i], titles[i], top_scores[row], top_slots[row],
                     tuple(m[row] for m in mom))
 
-        plan = batch_plan(self.config, queries)
         if self.mode == "host_stream":
             self._score_groups(plan, lambda idxs, scores: emit(
                 idxs, *self._host_reduce(scores, k)))
@@ -942,7 +976,10 @@ class SearchEngine:
             pending = self._score_groups(plan, lambda idxs, scores: (
                 idxs, _topk(scores, self.valid, self.lnl, k)))
             for idxs, packed in pending:
-                emit(idxs, *_unpack_topk(packed.cpu().numpy()))
+                with self.metrics.phase("engine.readback"):
+                    host = packed.cpu().numpy()
+                with self.metrics.phase("engine.results"):
+                    emit(idxs, *_unpack_topk(host))
         elapsed = time.perf_counter() - t0
         self.metrics.add("search_batch", elapsed)
         # every result carries the batch's wall time and batch_n: queries

@@ -9,7 +9,8 @@ resident and streams queries at it; this module is that deployment shape.
 Endpoints (JSON in/out):
 
   GET  /healthz   liveness + request counters (uptime, queries served,
-                  aggregate GCUPS) — the load-balancer probe.
+                  aggregate GCUPS, queue waits, the engine's phase
+                  totals) — the load-balancer probe.
   GET  /info      database / config / device inventory.
   POST /search    {"query": "MKTAYI..."}, {"queries": [...]}, or
                   {"fasta": ">q1\\nMKT..."} (multi-record FASTA text,
@@ -50,6 +51,7 @@ Closing the service drains the pending requests, then one more broadcast
 releases the workers.
 """
 
+import itertools
 import json
 import signal
 import threading
@@ -59,16 +61,21 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from oswald_tpu_torch.alphabet import encode
+from oswald_tpu_torch.engine.search import ENGINE_PHASES
+from oswald_tpu_torch.utils.metrics import Metrics
 
 MAX_BODY_BYTES = 64 << 20  # refuse absurd request bodies early
 
 
 class _Pending:
-    """One request's slot in the micro-batch queue."""
+    """One request's slot in the micro-batch queue: its id and the
+    perf_counter time it was queued at are set when it is queued."""
 
-    __slots__ = ("enc", "titles", "done", "results", "error")
+    __slots__ = ("rid", "t_queued", "enc", "titles", "done", "results",
+                 "error")
 
     def __init__(self, enc, titles):
+        self.rid = self.t_queued = None
         self.enc = enc
         self.titles = titles
         self.done = threading.Event()
@@ -76,9 +83,22 @@ class _Pending:
         self.error = None
 
 
+def _dispatch_args(batch, waits):
+    """The args of a serve.dispatch span: its requests' ids and their
+    waits in the queue, in ms."""
+    return lambda: {"ids": [p.rid for p in batch],
+                    "wait_ms": [round(w * 1e3, 3) for w in waits]}
+
+
 class SearchService:
     """Engine wrapper with request accounting; independent of HTTP so it
-    can be embedded (tests drive it directly too)."""
+    can be embedded (tests drive it directly too).
+
+    `metrics` holds the dispatcher's spans and counters: `serve.wait` (the
+    dispatcher waiting on an empty queue), `serve.dispatch` (one
+    search_many, its args the requests' ids and queue waits) and
+    `serve.queue_wait` (each request's wait from being queued to the start
+    of the dispatch that takes it, added once per request)."""
 
     def __init__(self, db, engine):
         self.db = db
@@ -91,6 +111,8 @@ class SearchService:
                                 # under concurrent load: the micro-batcher)
         self.cells = 0          # true query-residues x db-residues scored
         self.busy_s = 0.0       # engine time (not per-request wall time)
+        self.metrics = Metrics()
+        self._ids = itertools.count()
         self._cv = threading.Condition()
         self._queue = []        # [_Pending]
         self._closed = False
@@ -112,30 +134,40 @@ class SearchService:
         a lone request on an idle engine dispatches immediately."""
         while True:
             with self._cv:
-                while not self._queue and not self._closed:
-                    self._cv.wait()
+                if not self._queue and not self._closed:
+                    with self.metrics.phase("serve.wait"):
+                        while not self._queue and not self._closed:
+                            self._cv.wait()
                 if not self._queue and self._closed:
                     return
                 batch, self._queue = self._queue, []
             queries = [q for p in batch for q in p.enc]
             titles = [t for p in batch for t in p.titles]
             t0 = time.perf_counter()
+            waits = [t0 - p.t_queued for p in batch]
+            for w in waits:
+                self.metrics.add("serve.queue_wait", w)
             try:
-                results = self.engine.search_many(queries, titles)
+                with self.metrics.phase("serve.dispatch",
+                                        _dispatch_args(batch, waits)):
+                    results = self.engine.search_many(queries, titles)
             except Exception as batch_exc:  # noqa: BLE001 - isolate the
                 # offender: retry each coalesced request individually so
                 # one pathological query doesn't fail its batch-mates
                 # (each gets its OWN exception instance, not a shared
                 # one).  A single-request batch has no mates — don't
                 # re-run its identical failing search.
-                for p in batch:
+                for p, w in zip(batch, waits):
                     if len(batch) == 1:
                         p.error = batch_exc
                         p.done.set()
                         break
                     t1 = time.perf_counter()
                     try:
-                        p.results = self.engine.search_many(p.enc, p.titles)
+                        with self.metrics.phase("serve.dispatch",
+                                                _dispatch_args([p], [w])):
+                            p.results = self.engine.search_many(p.enc,
+                                                                p.titles)
                         with self.lock:     # retries still count as work
                             self.n_dispatches += 1
                             self.cells += sum(len(q) for q in p.enc) \
@@ -218,6 +250,7 @@ class SearchService:
         with self._cv:
             if self._closed:
                 raise RuntimeError("service is shut down")
+            p.rid, p.t_queued = next(self._ids), time.perf_counter()
             self._queue.append(p)
             self._cv.notify()
         p.done.wait()
@@ -266,6 +299,13 @@ class SearchService:
                 "gcups": round(Q * self.db.n_residues / dt / 1e9, 2)}
 
     def health(self) -> dict:
+        """The counters: requests, queries and dispatches; busy_s (time in
+        the dispatcher's search_many calls) and lifetime_gcups over it;
+        queue_wait_s and waited (every dispatched request's wait in the
+        queue, summed, and their count); phases (the engine's spans of
+        ENGINE_PHASES, seconds in all)."""
+        waited = self.metrics.as_dict().get("serve.queue_wait",
+                                            {"total_s": 0.0, "count": 0})
         return {"status": "ok",
                 "uptime_s": round(time.time() - self.t_start, 1),
                 "requests": self.n_requests,
@@ -273,7 +313,11 @@ class SearchService:
                 "dispatches": self.n_dispatches,
                 "busy_s": round(self.busy_s, 3),
                 "lifetime_gcups": round(
-                    self.cells / max(self.busy_s, 1e-9) / 1e9, 2)}
+                    self.cells / max(self.busy_s, 1e-9) / 1e9, 2),
+                "queue_wait_s": round(waited["total_s"], 6),
+                "waited": waited["count"],
+                "phases": {n: round(self.engine.metrics.total(n), 6)
+                           for n in ENGINE_PHASES}}
 
     def info(self) -> dict:
         import torch

@@ -126,7 +126,9 @@ def test_healthz_and_info(server):
     base, service, engine, seqs, jax_service = server
     code, h = _get(base + "/healthz")
     assert code == 200 and h["status"] == "ok"
-    assert set(h) == set(jax_service.health())
+    # the reference's counters, and the port's queue waits and engine spans
+    assert set(h) == set(jax_service.health()) | {"queue_wait_s", "waited",
+                                                  "phases"}
     code, info = _get(base + "/info")
     assert code == 200
     want = jax_service.info()
