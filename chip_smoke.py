@@ -28,9 +28,10 @@ checkout's sources (one nvcc per source, all started together), then:
 3. kernel against plain version: sw_groups and sw_groups_ref on one group
    of every bin, at query lengths 512 and 65; the int32 scores must be
    equal (tolerance: exact).  A lone group is too small a launch to fill
-   the card, so its default work table pipelines it whatever its length;
-   the same group dealt out as rows (the role of short groups in a
-   whole-database launch) is held to the same scores;
+   the card, so its default work table pipelines it whatever its length and
+   splits its slabs over clusters; the same group dealt out as rows (the
+   role of short groups in a whole-database launch) and its plain launch
+   (each slab one block) are held to the same scores;
 4. main path: SearchEngine.search for the 512-residue query and a random
    65-residue one, each one warm-up plus 3 timed runs, with the kernel's
    launch count read around them; the planted homolog must rank first with
@@ -38,6 +39,23 @@ checkout's sources (one nvcc per source, all started together), then:
    Then sw_groups over the whole database beside its bound, over the
    longest bin alone and over one group of it alone (the latency case), at
    both query lengths;
+4b. giants (alone: `python3 chip_smoke.py --giants`): the kernels'
+   registers and the clusters of 2, 4 and 8 blocks the card holds at once
+   (cudaOccupancyMaxActiveClusters); then sw_groups over a database with
+   the Swiss-Prot 2013_11 length spectrum the benchmark uses (its
+   release_lengths: 541,561 sequences, the longest 35,213) and random
+   residues, at m = 5478 and 144: the default table, whose giant group's
+   slabs are split over clusters (K printed), and its plain launch (each
+   slab one block) timed in turn A B B A, their scores equal, the cluster
+   launch counted; the giant group alone, split and plain; and a database
+   of as many sequences capped at 5478, whose table must split nothing and
+   launch as a plain grid; the giant group alone at m = 144 against
+   sw_groups_ref.  Then a batch of 512 peptides of 10-30 residues (PAM30
+   9/1) packed as the engine packs the peptide cell's, every launch of its
+   plan split and plain, 8 rounds in turn, every score tensor equal, and
+   the first 12 segments of one bin on the giant group against
+   sw_groups_packed_ref.  Each time beside its bound, which it must not
+   beat;
 5. packed kernel against plain version: sw_groups_packed and
    sw_groups_packed_ref on one group of every bin, for the packing plan of
    20 mixed queries of 100-400 residues and for a uniform layout of 8
@@ -188,6 +206,13 @@ REPLACES_LAB = "scripts/kernel_lab.py:176"
 # times A B B A, their median times agree within SAME_CODE_RTOL
 SAME_CODE_ROUNDS = 4
 SAME_CODE_RTOL = 0.03
+# phase 4b: the peptide cell's batch (512 peptides of 10-30 residues,
+# PAM30 9/1), its plan's launches split and plain PEPTIDE_ROUNDS times, and
+# the first PEPTIDE_REF_SEGS segments of one bin on the giant group held to
+# the plain PyTorch version (each segment a loop over 35,232 columns)
+N_PEPTIDES, PEPTIDE_LO, PEPTIDE_HI = 512, 10, 30
+PEPTIDE_ROUNDS = 8
+PEPTIDE_REF_SEGS = 12
 # phase 9: client threads, and the single-client latency run's requests
 SERVE_CLIENTS = 8
 SERVE_SINGLE_REQUESTS = 20
@@ -332,8 +357,9 @@ def first_groups(engine):
 
 
 def sub_table(engine, gi):
-    """(group gi alone as a table, its default work table, its work table
-    with no group pipelined), on the device."""
+    """(group gi alone as a table, its default work table (the lone group's
+    slabs split over clusters), its work table with no group pipelined),
+    on the device."""
     from oswald_tpu_torch.kernels.sw_lanes import work_table
     grp = engine.state.groups[gi:gi + 1].contiguous()
     return grp, work_table(grp), work_table(grp, 1 << 30)
@@ -360,8 +386,10 @@ def kernel_vs_plain(engine, queries):
                               TIMED_RUNS)
             want, p_ms = timed(lambda: sw_groups_ref(*args), 1)
             as_rows = sw_groups(*args, engine.scratch, row_work)
+            one_block = sw_groups(*args, engine.scratch, work.plain())
             err = max(int((got - want).abs().max()),
-                      int((as_rows - want).abs().max()))
+                      int((as_rows - want).abs().max()),
+                      int((one_block - want).abs().max()))
             worst = max(worst, err)
             if m == queries[0][0]:
                 wants[gi] = want
@@ -618,6 +646,216 @@ def longest_bin(engine):
             ("one group of them alone", one, work_table(one))]
 
 
+def release_database(capped: bool, seed=SEED):
+    """(PackedDB, the lengths' source) of the database the benchmark's
+    swissprot-blosum62 configuration holds: the Swiss-Prot 2013_11 length
+    spectrum (benchmark/perfkit/data.py::release_lengths: 541,561 sequences,
+    192,480,382 residues, the longest 35,213), or with `capped` as many
+    sequences of the port's synthetic model capped at 5478 (the first
+    database of the benchmark, with no giants).  Random residues."""
+    from oswald_tpu_torch.io import pack_sequences
+    from oswald_tpu_torch.io.synth import realistic_lengths
+    bench = Path(__file__).resolve().parent / "benchmark"
+    config = json.loads((bench / "configs" /
+                         "swissprot-blosum62.json").read_text())
+    rng = np.random.default_rng(seed)
+    if capped:
+        lengths = realistic_lengths(rng, int(config["n_seqs"]), 5478)
+        what = "capped at 5478"
+    else:
+        sys.path.insert(0, str(bench))
+        from perfkit.data import release_lengths
+        lengths = release_lengths(config)
+        what = "Swiss-Prot 2013_11 spectrum"
+    flat = rng.integers(0, 20, size=int(lengths.sum()), dtype=np.int8)
+    db = pack_sequences(flat, lengths, [""] * len(lengths))
+    return db, what
+
+
+def giants(card, seed=SEED):
+    """Phase 4b: sw_groups over the release database, whose last group
+    holds the giants, split over clusters, and its plain launch (nothing
+    split), timed in turn A B B A at m = 5478 and 144, their scores
+    equal; the giant group alone, split and plain; the capped database,
+    which must split nothing (its table its plain one, no cluster
+    launch); the giant group alone at m = 144 against sw_groups_ref; the
+    peptide cell's launches (peptide_launches).  Prints K, the kernels'
+    registers and the clusters the card holds.  Fails if a time is under
+    its bound or a score differs."""
+    from oswald_tpu_torch.io.device_db import to_device
+    from oswald_tpu_torch.kernels import build, sw_lanes
+    from oswald_tpu_torch.kernels.sw_lanes import (LONG_FROM, card_blocks,
+                                                   max_active_clusters,
+                                                   sw_groups, sw_groups_ref,
+                                                   work_table)
+    from oswald_tpu_torch.submat import get_submat
+    from oswald_tpu_torch.utils.metrics import gcups
+    dev = torch.device("cuda", 0)
+    sm = torch.as_tensor(get_submat("blosum62"), dtype=torch.int32,
+                         device=dev)
+    for name in ("sw_groups", "sw_groups_packed"):
+        for line in (build.build_logs.get(name) or "").splitlines():
+            if "registers" in line:
+                say(f"{name}: {line.strip()}")
+        held = {K: max_active_clusters(K, name) for K in (2, 4, 8)}
+        say(f"{name}: clusters the card holds at once (K: clusters, "
+            f"blocks): " + ", ".join(f"{K}: {n}, {n * K}"
+                                     for K, n in held.items()) +
+            f"; the card's block slots {card_blocks()} [{card}]")
+    rng = np.random.default_rng(seed + 2)
+    for capped in (False, True):
+        db, what = release_database(capped, seed)
+        st = to_device(db, dev)
+        work = st.work
+        scratch = torch.empty((2,) + tuple(st.residues.shape),
+                              dtype=torch.int32, device=dev)
+        top = int(st.groups[:, 1].max())
+        say(f"{what}: {db.n_seqs} sequences, {db.n_residues} residues, "
+            f"{st.groups.shape[0]} groups, the longest {top} columns; work "
+            f"table {len(work)} blocks, K = {work.cluster}, "
+            f"{work.split_slabs} slabs split")
+        if capped != (work.plain() is work):
+            raise AssertionError(f"{what}: {work.split_slabs} slabs split")
+        tables = [("whole database", st.groups, work)]
+        if not capped:
+            last = st.groups[-1:].contiguous()
+            tables.append((f"the giant group alone ({top} columns)", last,
+                           work_table(last, LONG_FROM)))
+        for m in (5478, 144):
+            q = torch.from_numpy(rng.integers(0, 20, size=m).astype(
+                np.int32)).to(dev)
+            for label, groups, w in tables:
+                runs = {"plain": w} if capped else {"split": w,
+                                                    "plain": w.plain()}
+
+                def launch(k):
+                    return sw_groups(st.residues, groups, q, sm, 10, 2,
+                                     scratch, runs[k])
+
+                before = sw_lanes.cluster_launches
+                got = {k: launch(k) for k in runs}
+                if sw_lanes.cluster_launches - before != (not capped):
+                    raise AssertionError(f"{what}, {label}: cluster "
+                                         f"launches counted wrong")
+                if not capped and not torch.equal(got["split"],
+                                                  got["plain"]):
+                    diff = int((got["split"] - got["plain"]).abs().max())
+                    raise AssertionError(f"{what}, {label}, m={m}: split "
+                                         f"and plain launches differ by "
+                                         f"{diff}")
+                if not capped and groups is not st.groups and m == 144:
+                    # the split path against the plain PyTorch version, on
+                    # the longest group there is
+                    want = sw_groups_ref(st.residues, groups, q, sm, 10, 2)
+                    if not torch.equal(got["split"], want):
+                        raise AssertionError(
+                            f"{what}, {label}, m={m}: the split launch "
+                            f"differs from sw_groups_ref in "
+                            f"{int((got['split'] != want).sum())} lanes")
+                    say(f"{what}, {label}, m={m}: split launch == "
+                        f"sw_groups_ref (exact) [{card}]")
+                times = {k: [] for k in runs}
+                for r in range(1 if capped else 2):
+                    for k in sorted(runs, reverse=r % 2 == 1):
+                        times[k].append(timed(lambda: launch(k),
+                                              TIMED_RUNS)[1])
+                cols = int(groups[:, 1].sum())
+                b_ms, b_by = bound(cols * 1024 * m, cols * 1024)
+                parts = []
+                for k, v in times.items():
+                    ms = statistics.mean(v)
+                    hold_to_bound(f"{what}, {label}, {k}, m={m}", ms, b_ms)
+                    rate = f", {gcups(m, db.n_residues, ms / 1e3):.1f} " \
+                        f"GCUPS" if groups is st.groups else ""
+                    each = " / ".join(f"{x:.2f}" for x in v)
+                    parts.append(f"{k} {ms:.2f} ms ({each}{rate})")
+                say(f"{what}, {label}, m={m}: " + "; ".join(parts) +
+                    f"; bound {b_ms:.2f} ms by {b_by} [{card}]")
+        if not capped:
+            peptide_launches(st, scratch, rng, what, card)
+        del st, scratch
+        torch.cuda.empty_cache()
+
+
+def peptide_launches(st, scratch, rng, what, card):
+    """Phase 4b, the peptide cell's launches on the release database: a
+    batch of N_PEPTIDES peptides packed as the engine packs it (batch_plan:
+    bins of 32 segments of 1-2 strips, so a split slab's strips cross sets,
+    blocks and, through the scratch, wrap round to set 0), PAM30 9/1.
+    Every launch of the plan, split and on the plain table, PEPTIDE_ROUNDS
+    rounds in turn: every score tensor equal to the first round's plain
+    one, and the rounds' times.  Then the first PEPTIDE_REF_SEGS segments
+    of the first bin on the giant group alone, split, against
+    sw_groups_packed_ref."""
+    from oswald_tpu_torch.engine.search import SearchConfig, batch_plan
+    from oswald_tpu_torch.kernels.sw_lanes import (LONG_FROM, STRIP_ROWS,
+                                                   sw_groups_packed,
+                                                   sw_groups_packed_ref,
+                                                   work_table)
+    from oswald_tpu_torch.submat import get_submat
+    dev = st.groups.device
+    sm = torch.as_tensor(get_submat("pam30"), dtype=torch.int32, device=dev)
+    og, eg = 9, 1
+    peptides = [rng.integers(0, 20, size=int(n)).astype(np.int32)
+                for n in rng.integers(PEPTIDE_LO, PEPTIDE_HI + 1,
+                                      size=N_PEPTIDES)]
+    plan = batch_plan(SearchConfig(matrix="pam30", open_gap=og,
+                                   extend_gap=eg), peptides)
+    launches = [(torch.from_numpy(np.ascontiguousarray(rows)).to(dev),
+                 torch.from_numpy(np.ascontiguousarray(segs)).to(dev))
+                for _, ls in plan for rows, segs in ls]
+    if any(segs is None for _, ls in plan for _, segs in ls):
+        raise AssertionError("the peptide batch left a query unpacked")
+    tables = {"split": st.work, "plain": st.work.plain()}
+
+    def run(k):
+        return [sw_groups_packed(st.residues, st.groups, rows, segs, sm, og,
+                                 eg, scratch, tables[k])
+                for rows, segs in launches]
+
+    want = run("plain")
+    times = {k: [] for k in tables}
+    bad = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for r in range(PEPTIDE_ROUNDS):
+        for k in sorted(tables, reverse=r % 2 == 1):
+            start.record()
+            got = run(k)
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end))
+            bad += sum(int((a != b).sum()) for a, b in zip(got, want))
+            del got
+    if bad:
+        raise AssertionError(f"{what}, peptides: {bad} scores of the split "
+                             f"and plain rounds differ from the first plain "
+                             f"round's")
+    say(f"{what}, a batch of {N_PEPTIDES} peptides of {PEPTIDE_LO}-"
+        f"{PEPTIDE_HI} (PAM30 {og}/{eg}), {len(launches)} packed launches of "
+        f"{max(len(s) for _, s in launches)} segments at most, "
+        f"{PEPTIDE_ROUNDS} rounds in turn, every score tensor equal: " +
+        "; ".join(f"{k} median {statistics.median(v):.2f} ms a batch "
+                  f"({min(v):.2f}-{max(v):.2f})" for k, v in times.items()) +
+        f" [{card}]")
+    last = st.groups[-1:].contiguous()
+    rows, segs = launches[0]
+    segs = segs[:PEPTIDE_REF_SEGS].contiguous()
+    w = work_table(last, LONG_FROM)
+    got = sw_groups_packed(st.residues, last, rows, segs, sm, og, eg,
+                           scratch, w)
+    ref = sw_groups_packed_ref(st.residues, last, rows, segs, sm, og, eg)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what}, peptides on the giant group: the "
+                             f"split launch differs from "
+                             f"sw_groups_packed_ref in "
+                             f"{int((got != ref).sum())} lanes")
+    strips = int(((segs[:, 1] + STRIP_ROWS - 1) // STRIP_ROWS).sum())
+    say(f"{what}, the first {len(segs)} peptides of a bin ({strips} "
+        f"strips) on the giant group alone, K = {w.cluster}: split launch "
+        f"== sw_groups_packed_ref (exact) [{card}]")
+
+
 def whole_and_longest(engine, launch):
     """CUDA-event times of launch(groups, work) over the whole database,
     over the longest bin alone and over one group of it alone: (whole
@@ -690,8 +928,11 @@ def same_code(engine, q_long, card, engine_ms):
     args = (st.residues, st.groups, qt, engine.submat_dev, cfg.open_gap,
             cfg.extend_gap)
     lab_name = label("base", STRIP_ROWS, True)
+    # the lab launches a table's plain version as a plain grid: so does
+    # sw_groups here, on the same code
     kernels = {
-        "sw_groups": lambda: sw_groups(*args, engine.scratch, st.work),
+        "sw_groups": lambda: sw_groups(*args, engine.scratch,
+                                       st.work.plain()),
         lab_name: lambda: sw_groups_lab(*args, "base", engine.scratch, True,
                                         st.work, STRIP_ROWS)}
     times = {k: [] for k in kernels}
@@ -1694,6 +1935,7 @@ def run(device, n_seqs, card, parity_launches, seed=SEED):
         say(f"search m={m}: {sec:.4f} s, "
             f"{gcups(m, db.n_residues, sec):.1f} GCUPS [{card}]")
     engine_ms = single_tail(engine, queries, card)
+    giants(card, seed)
 
     # the batch queries come from their own generator, so the database
     # stays the one the seed gives
@@ -1782,6 +2024,10 @@ def main():
     enable_compile_cache(str(CHECKOUT_BUILD))
     smi = probe()
     say(smi)
+    if sys.argv[1:2] == ["--giants"]:
+        giants(smi)                  # phase 4b alone
+        say(json.dumps({"ok": True}))
+        return 0
     parity_launches = parity_gate(smi)
     record = run(torch.device("cuda", 0), N_SEQS, smi, parity_launches)
     say(json.dumps(record))

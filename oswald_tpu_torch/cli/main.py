@@ -422,11 +422,13 @@ def cmd_search(args):
     if args.trace:
         from oswald_tpu_torch.utils.metrics import profile_trace
         trace_ctx = profile_trace(args.trace)
+    before = _launch_counts()
     t0 = time.perf_counter()
     with trace_ctx:
         results = engine.search_many(queries, queries_titles,
                                      batch=not args.no_batch)
     search_s = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _launch_counts().items()}
     Q = sum(len(q) for q in queries)
     gcups = _gcups(Q, db.n_residues, search_s)
 
@@ -484,7 +486,8 @@ def cmd_search(args):
                         "matrix": args.sm, "gap_open": args.gap_open,
                         "gap_extend": args.gap_extend}}))
         if args.metrics:
-            print(json.dumps({"metrics": engine.metrics.as_dict()}))
+            print(json.dumps({"metrics": engine.metrics.as_dict(),
+                              "launches": launched}))
         return 0
 
     for i, res in enumerate(results):
@@ -531,7 +534,21 @@ def cmd_search(args):
     if args.metrics:
         print("\nPhase timings:")
         print(engine.metrics.report())
+        n = launched["kernels"]
+        share = f"{100 * launched['cluster'] / n:.1f}%" if n else "-"
+        print(f"Kernel launches:\t\t{n} ({launched['cluster']} in "
+              f"thread-block clusters, {share}; {launched['split_slabs']} "
+              f"slabs split)")
     return 0
+
+
+def _launch_counts():
+    """This process's engine kernel launches so far: all of them, those
+    that ran thread-block clusters, and the slabs those split."""
+    from oswald_tpu_torch.kernels import sw_lanes
+    return {"kernels": sw_lanes.launches + sw_lanes.launches_packed,
+            "cluster": sw_lanes.cluster_launches,
+            "split_slabs": sw_lanes.split_slabs}
 
 
 def cmd_serve(args):

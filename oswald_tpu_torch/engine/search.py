@@ -172,14 +172,19 @@ ENGINE_PHASES = ("engine.plan", "engine.launch", "engine.readback",
                  "engine.results")
 
 
-def _load(launches):
+def _load(launches, tables):
     """An engine.launch span's args: the queries and query residues of
-    launches [(query rows, segs int32[S, 2] or None)]."""
+    launches [(query rows, segs int32[S, 2] or None)], and of the work
+    tables they launch with (the resident one, or a host_stream sweep's
+    slices'), `cluster` (the most blocks a split slab takes; 1: none
+    split, plain launches) and `split_slabs` (summed over the tables)."""
     return {"queries": sum(1 if segs is None else len(segs)
                            for _, segs in launches),
             "residues": int(sum(np.asarray(rows).size if segs is None
                                 else segs[:, 1].sum()
-                                for rows, segs in launches))}
+                                for rows, segs in launches)),
+            "cluster": max((t.cluster for t in tables), default=1),
+            "split_slabs": sum(t.split_slabs for t in tables)}
 
 
 # packed trailing moment columns: [sum, sumsq, slnl, T1] in row 0 and
@@ -767,6 +772,12 @@ class SearchEngine:
         return top_scores, top_slots, _host_moments(
             scores, self._hs_valid, self.lnl_flat, top_scores)
 
+    def _tables(self):
+        """The work tables a launch of this engine runs with."""
+        if self.mode == "host_stream":
+            return [sl.work for sl in self._hs_slices]
+        return [self.state.work]
+
     def _launch(self, rows, segs=None) -> torch.Tensor:
         """Queue one kernel launch over the resident database: query rows
         int32[m] (host), and with segs int32[S, 2] one sw_groups_packed
@@ -798,7 +809,8 @@ class SearchEngine:
         host rows of the sweep's reused buffer."""
         if self.mode == "host_stream":
             every = [launch for _, launches in plan for launch in launches]
-            with self.metrics.phase("engine.launch", lambda: _load(every)):
+            with self.metrics.phase("engine.launch",
+                                    lambda: _load(every, self._tables())):
                 swept = iter(self._host_stream_scores_multi(every))
             out = []
             for idxs, launches in plan:
@@ -810,7 +822,7 @@ class SearchEngine:
         out = []
         for idxs, launches in plan:
             with self.metrics.phase("engine.launch",
-                                    lambda: _load(launches)):
+                                    lambda: _load(launches, self._tables())):
                 parts = [self._launch(*launch) for launch in launches]
                 scores = parts[0] if len(parts) == 1 else torch.cat(parts)
                 del parts
@@ -886,7 +898,7 @@ class SearchEngine:
         for lo in range(0, len(queries), W):
             window = queries[lo:lo + W]
             with self.metrics.phase("engine.launch", lambda: _load(
-                    [(q, None) for q in window])):
+                    [(q, None) for q in window], self._tables())):
                 grp = [self._dispatch(q, t)
                        for q, t in zip(window, titles[lo:lo + W])]
                 # host_stream queries are finished already: nothing to stack

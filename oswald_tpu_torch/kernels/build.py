@@ -32,12 +32,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sw_groups": {
         "sw_groups_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _P,
-                              _P, _P], _I),
+                              _P, _P, _I], _I),
+        "sw_groups_max_active_clusters": ([_I], _I),
         "sw_groups_error_string": ([_I], ctypes.c_char_p),
     },
     "sw_groups_packed": {
         "sw_groups_packed_launch": ([_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
-                                     _I, _I, _P, _P, _P, _P], _I),
+                                     _I, _I, _P, _P, _P, _P, _I], _I),
+        "sw_groups_packed_max_active_clusters": ([_I], _I),
         "sw_groups_packed_error_string": ([_I], ctypes.c_char_p),
     },
     "sw_groups_lab": {

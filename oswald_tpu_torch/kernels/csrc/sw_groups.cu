@@ -20,6 +20,13 @@
 //   that take the strips in turn, H and F crossing from set to set through
 //   rings in shared memory, so a long subject's critical path is a quarter
 //   of its strips and only a quarter of them touch the global scratch;
+// - the slabs of the longest subjects, whose critical path would exceed the
+//   launch's balanced share even so (the giants of a Swiss-Prot release,
+//   35,213 residues, against a median of ~270), are split: the 4 K warps of
+//   a cluster of K blocks are the sets, H and F crossing from block to block
+//   through distributed shared memory, so the critical path is a (4 K)-th
+//   of the strips.  Such a launch is a cluster launch; one whose work table
+//   splits nothing launches as a plain grid;
 // - residues and the H/F rows read back from the scratch reach shared memory
 //   by cp.async a tile of 8 columns ahead, so the column loop reads shared
 //   memory and registers only;
@@ -59,27 +66,36 @@ sw_groups_kernel(const int8_t* __restrict__ db,
 }  // namespace
 
 // Scores query[0:m] against every group; scores is int32[n_groups, 8, 128],
-// zeroed by the caller.  work is int32[n_items, 2], the (group, part) items
-// in launch order (sw_lanes.work_table).  hrow and frow are int32 scratch of
-// the residue buffer's size; they and db must be 16-byte aligned.  Launches
-// on `stream` without synchronising and returns cudaGetLastError().
+// zeroed by the caller.  work is int32[n_items, 2], the (group, part) entry
+// of each block in launch order (sw_lanes.work_table), laid out in aligned
+// runs of `cluster` blocks when it splits slabs (cluster > 1: a cluster
+// launch), else cluster is 1.  hrow and frow are int32 scratch of the residue
+// buffer's size; they and db must be 16-byte aligned.  Launches on `stream`
+// without synchronising and returns the launch's error.
 extern "C" int sw_groups_launch(const void* db, const void* groups,
                                 int n_groups, const void* work, int n_items,
                                 const void* query, int m, const void* submat,
                                 int open_gap, int extend_gap, void* hrow,
-                                void* frow, void* scores, void* stream) {
-  if (n_groups <= 0 || n_items <= 0 || m <= 0)
+                                void* frow, void* scores, void* stream,
+                                int cluster) {
+  if (n_groups <= 0 || n_items <= 0 || m <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || n_items % cluster != 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(db) || !aligned16(hrow) || !aligned16(frow))
     return (int)cudaErrorMisalignedAddress;
   (void)cudaGetLastError();   // drop a refused call's error from before
-  sw_groups_kernel<kStripRows><<<n_items, kRowLanes, 0,
-                                 (cudaStream_t)stream>>>(
+  return launch_items(
+      sw_groups_kernel<kStripRows>, n_items, cluster, stream,
       (const int8_t*)db, (const int32_t*)groups, n_groups,
       (const int32_t*)work, (const int32_t*)query, m, (const int32_t*)submat,
       open_gap + extend_gap, extend_gap, (int32_t*)hrow, (int32_t*)frow,
       (int32_t*)scores);
-  return (int)cudaGetLastError();
+}
+
+// The clusters of `cluster` blocks of the kernel the card holds at once, or
+// minus the CUDA error.
+extern "C" int sw_groups_max_active_clusters(int cluster) {
+  return max_active_clusters(sw_groups_kernel<kStripRows>, cluster);
 }
 
 extern "C" const char* sw_groups_error_string(int err) {

@@ -13,9 +13,11 @@
 // (sw_cell_lab.cuh) and the placement of a column's shared-memory reads
 // (kAhead).  Everything else is the engine's sweep (sw_tile.cuh): the work
 // table, rows and pipelined slabs, staged tiles, the per-strip score profile,
-// the launch bounds, the query in global memory (any length launches).  So
-// the lab measures bodies on the sweep the engine ships, and `base` with the
-// reads ahead at U = 16 is sw_groups itself.
+// the launch bounds, the query in global memory (any length launches), and
+// the branches of split slabs, which the lab never takes: it launches a
+// plain grid over a table's plain version (sw_lab.py).  So the lab measures
+// bodies on the sweep the engine ships, and `base` with the reads ahead at
+// U = 16 is sw_groups itself.
 //
 // What bounds the work on an H100 is what bounds sw_groups: integer
 // instructions, at best 5.5 fused ones per cell of the recurrence whatever

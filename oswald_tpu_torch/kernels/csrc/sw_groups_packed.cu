@@ -22,9 +22,9 @@
 //   padded residue serves every segment, because a position is read only by
 //   the strip below the one that wrote it.
 // - In the long role the strips of all segments form one sequence dealt to
-//   the four sets in turn, so the pipeline stays full across segment
-//   boundaries and a 32-segment launch on a long group has no more fill
-//   than a one-segment launch.
+//   the four sets in turn (the 4 K sets of a cluster for a split slab), so
+//   the pipeline stays full across segment boundaries and a 32-segment
+//   launch on a long group has no more fill than a one-segment launch.
 // - The packed rows stay in global memory, whatever their number.
 //
 // What bounds it on an H100: as sw_groups, integer instructions (5.5 fused
@@ -60,19 +60,19 @@ sw_groups_packed_kernel(const int8_t* __restrict__ db,
                         int32_t* __restrict__ scores) {
   __shared__ BlockShared<U> S;
   init_block(S, submat);
-  score_item<U, EngineColumn<U>, true>(S, db, groups, n_groups, work,
-                                       q_packed, n_segs, Segments{segs, m_tot},
-                                       oe, e, hrow, frow, scores);
+  score_item<U, EngineColumn<U>, true>(
+      S, db, groups, n_groups, work, q_packed, n_segs, Segments{segs, m_tot},
+      oe, e, hrow, frow, scores);
 }
 
 }  // namespace
 
 // Scores every segment (first row, row count) of q_packed[0:m_tot] against
 // every group; scores is int32[n_segs, n_groups, 8, 128], zeroed by the
-// caller.  work is int32[n_items, 2], the (group, part) items in launch
-// order (sw_lanes.work_table).  hrow and frow are int32 scratch of the
-// residue buffer's size; they and db must be 16-byte aligned.  Launches on
-// `stream` without synchronising and returns cudaGetLastError().
+// caller.  work and cluster are those of sw_groups_launch (sw_groups.cu).
+// hrow and frow are int32 scratch of the residue buffer's size; they and db
+// must be 16-byte aligned.  Launches on `stream` without synchronising and
+// returns the launch's error.
 extern "C" int sw_groups_packed_launch(const void* db, const void* groups,
                                        int n_groups, const void* work,
                                        int n_items, const void* q_packed,
@@ -80,20 +80,26 @@ extern "C" int sw_groups_packed_launch(const void* db, const void* groups,
                                        int n_segs, const void* submat,
                                        int open_gap, int extend_gap,
                                        void* hrow, void* frow, void* scores,
-                                       void* stream) {
-  if (n_groups <= 0 || n_items <= 0 || m_tot <= 0 || n_segs <= 0)
+                                       void* stream, int cluster) {
+  if (n_groups <= 0 || n_items <= 0 || m_tot <= 0 || n_segs <= 0 ||
+      cluster < 1 || cluster > kMaxCluster || n_items % cluster != 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(db) || !aligned16(hrow) || !aligned16(frow))
     return (int)cudaErrorMisalignedAddress;
   (void)cudaGetLastError();   // drop a refused call's error from before
-  sw_groups_packed_kernel<kStripRows><<<n_items, kRowLanes, 0,
-                                        (cudaStream_t)stream>>>(
+  return launch_items(
+      sw_groups_packed_kernel<kStripRows>, n_items, cluster, stream,
       (const int8_t*)db, (const int32_t*)groups, n_groups,
       (const int32_t*)work, (const int32_t*)q_packed, m_tot,
       (const int32_t*)segs, n_segs, (const int32_t*)submat,
       open_gap + extend_gap, extend_gap, (int32_t*)hrow, (int32_t*)frow,
       (int32_t*)scores);
-  return (int)cudaGetLastError();
+}
+
+// The clusters of `cluster` blocks of the kernel the card holds at once, or
+// minus the CUDA error.
+extern "C" int sw_groups_packed_max_active_clusters(int cluster) {
+  return max_active_clusters(sw_groups_packed_kernel<kStripRows>, cluster);
 }
 
 extern "C" const char* sw_groups_packed_error_string(int err) {

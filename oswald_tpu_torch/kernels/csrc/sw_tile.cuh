@@ -3,19 +3,31 @@
 // every operand of the column loop in shared memory or registers.
 //
 // Work items.  A launch is a list of items sorted by descending cost
-// (sw_lanes.work_table), one block of kSets warps per item, taken by
+// (sw_lanes.work_table), one block of kSets warps per entry, taken by
 // blockIdx, so the longest subjects start first and the short ones fill the
 // card behind them.  An item is (group, part):
 //
 //   part < 8    short role: the 128-lane row `part` of the group.  Warp q owns
 //               lanes 32 q .. 32 q + 31 and sweeps every strip of every
 //               segment in turn.
-//   part >= 8   long role: the 32 lanes of slab part - 8 of the group (row
+//   8 .. 39     long role: the 32 lanes of slab part - 8 of the group (row
 //               slab / 4, quarter slab % 4).  The kSets warps of the block are
 //               sets of a pipeline over those 32 subjects: the strips of all
 //               segments, numbered k = 0, 1, ... in order, go to set k % kSets.
 //               The critical path of a subject falls from every strip in turn
 //               to a kSets-th of them plus a fill of kSets - 1 tiles.
+//   >= 40       split slab: the long role over the K blocks of a thread-block
+//               cluster, part = 40 + 32 r + slab in the entry of the cluster's
+//               block r.  Warp w of block r is set kSets r + w of a pipeline
+//               of kSets K sets, and strip k goes to set k % (kSets K): the
+//               critical path falls to a (kSets K)-th of the strips.  The
+//               work table gives a slab this role when its critical path
+//               would exceed the launch's balanced share, which only the
+//               groups of the longest subjects do (sw_lanes.work_table), and
+//               puts the K entries of a split slab on one cluster-aligned
+//               run of blocks; a launch with split slabs is a cluster launch
+//               of K blocks a cluster, in which every other item takes one
+//               block and ignores its peers.
 //
 // Hand-over.  A strip passes H of its last row and the F leaving it, column
 // by column, to the strip below.  Every warp has an input ring of kSlots
@@ -25,7 +37,16 @@
 //     swept by the same warp (short role) or by the last set in the round
 //     before (set 0 of the long role);
 //   - by set w - 1 storing straight into set w's ring (long role), a full and
-//     an empty mbarrier per slot ordering the two warps.
+//     an empty mbarrier per slot ordering the two warps;
+//   - across the blocks of a split slab, by the last warp of block r storing
+//     into the ring of warp 0 of block r + 1 over distributed shared memory
+//     (a generic pointer from mapa).  Each of its lanes arrives on that
+//     ring's full barrier in block r + 1 (release at cluster scope: each
+//     lane publishes its own stores), and warp 0 of block r + 1 arrives,
+//     once it has read a slot, on the `sent` barrier of block r, where the
+//     last warp waits before it stores into that slot again (both waits
+//     acquire at cluster scope).  mbarriers are waited on in their own
+//     block only, so the empty side of that ring lives in the sender's.
 // The residues of a tile are staged the same way (one 16-byte cp.async per
 // lane), so the column loop never waits on global memory.  The output of a
 // strip goes to the next set's ring, or with plain stores (which nothing
@@ -39,18 +60,27 @@
 // finished (`progress`), the last set behind a __threadfence.  Set 0 starts
 // the cp.async of tile c of its strip k only when the last set has finished
 // tile c of strip k - 1, and the last set stores tile c of its strip
-// k + kSets - 1 only when set 0 has finished tile c of strip k: a segment
+// k + sets - 1 only when set 0 has finished tile c of strip k: a segment
 // that starts between the two cuts the chain of hand-overs that would
-// otherwise keep the last set behind set 0.
+// otherwise keep the last set behind set 0.  A split slab's two counters
+// live in the shared memory of block 0, which holds set 0; the last set, in
+// block K - 1, writes and reads them over distributed shared memory (relaxed
+// at cluster scope, the fences at GPU scope as before).
 //
-// All waiting is between warps of one block (mbarriers and one counter in
-// shared memory): no block waits on another.  Tensor cores are not used:
-// wgmma has no max-plus product.
+// No block waits on a block outside its cluster: every wait is between warps
+// of one block (mbarriers and counters in shared memory) or, in a split slab,
+// between the blocks of one cluster, which the card schedules together, so
+// a block never waits on one that has not started.  The blocks of a split
+// slab meet at a cluster barrier once their barriers are initialised, before
+// the first hand-over, and again before they exit, so that no block leaves
+// while a peer may still store into its shared memory.  Tensor cores are not
+// used: wgmma has no max-plus product.
 //
 // The sweep is a template over the strip height U, the column body and the
 // placement of a column's shared-memory reads.  The engine kernels take
 // U = kStripRows, EngineColumn and the reads one column ahead; the kernel lab
-// (sw_groups_lab.cu) takes other bodies and placements on the same sweep.
+// (sw_groups_lab.cu) takes other bodies and placements on the same sweep,
+// split slabs included, and launches plain grids only.
 
 #pragma once
 
@@ -63,6 +93,9 @@ constexpr int kSets = 4;            // W: warps of a block, sets of the pipeline
 constexpr int kWarpLanes = 32;
 constexpr int kSlots = 2;           // tiles of an input ring
 constexpr int kQuarters = kRowLanes / kWarpLanes;
+constexpr int kSlabsPerGroup = kRowsPerGroup * kQuarters;  // 32-lane slabs
+constexpr int kSplitFrom = kRowsPerGroup + kSlabsPerGroup;  // first split part
+constexpr int kMaxCluster = 8;      // blocks of a split slab (portable size)
 // Blocks an SM must hold, which caps the registers of a thread.  The build
 // sets it (kernels/build.py: BLOCKS_PER_SM, which also sizes the card for the
 // work table), so the value stands in one place.
@@ -104,6 +137,9 @@ template <int U>
 struct __align__(16) BlockShared {
   int32_t sm[kMatrixWords];         // 24 x 24 matrix and a row of zeros
   WarpShared<U> warp[kSets];
+  // split slab: warp 0 of the next block has read a slot of its ring (the
+  // last warp of this block waits here before it fills the slot again)
+  unsigned long long sent[kSlots];
   int progress[2];                  // tiles finished by set 0, by the last set
 };
 
@@ -158,9 +194,92 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
   } while (!done);
 }
 
+// mbar_wait on a barrier of this block that a peer block of the cluster
+// arrives on: acquires what the peer released before its arrival.
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar,
+                                                  int parity) {
+  const uint32_t addr = shared_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// This block's rank in its cluster, and the cluster's blocks (1 outside a
+// cluster launch).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// Every thread of the cluster: what each wrote before is visible to all
+// after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The generic address of *p in the shared memory of block `rank` of the
+// cluster.
+template <class T>
+__device__ __forceinline__ T* peer_ptr(T* p, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// Arrive on the barrier of block `rank` of the cluster at the place of *bar
+// in this block, releasing this thread's earlier stores at cluster scope.
+__device__ __forceinline__ void mbar_arrive_peer(unsigned long long* bar,
+                                                 int rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(shared_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// A counter of `progress`, in this block or a peer's, at cluster scope.
+__device__ __forceinline__ int load_count(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.cluster.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_count(int* p, int v) {
+  asm volatile("st.relaxed.cluster.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // Once per block, before the first sweep: the matrix, the barriers (one
-// arrival each: lane 0 of the warp that filled or drained the slot) and the
-// counter.
+// arrival each: lane 0 of the warp that filled or drained the slot; warp 0's
+// ring is filled only from the block before in a split slab, whose last
+// warp arrives with every lane) and the counter.
 template <int U>
 __device__ __forceinline__ void init_block(BlockShared<U>& S,
                                            const int32_t* __restrict__ submat) {
@@ -168,11 +287,14 @@ __device__ __forceinline__ void init_block(BlockShared<U>& S,
   if (threadIdx.x < kSets) {
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      mbar_init(&S.warp[threadIdx.x].full[s], 1);
+      mbar_init(&S.warp[threadIdx.x].full[s],
+                threadIdx.x == 0 ? kWarpLanes : 1);
       mbar_init(&S.warp[threadIdx.x].empty[s], 1);
     }
   }
   if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) mbar_init(&S.sent[s], 1);
     S.progress[0] = S.progress[1] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -259,6 +381,8 @@ struct EngineColumn {
 // cur' of the strip.
 // With kAhead the residue, H and F of column j + 1 leave shared memory
 // before column j's chain; without it they are read where they are used.
+// The pipeline may span the blocks of a cluster (split slab): set
+// kSets r + w is warp w of block r, and the counters are block 0's.
 template <int U, class Body, bool kAhead>
 __device__ __forceinline__ int32_t sweep_tiles(
     BlockShared<U>& S, WarpState& st, const int8_t* __restrict__ res,
@@ -276,6 +400,17 @@ __device__ __forceinline__ int32_t sweep_tiles(
   const bool from_scratch = !first && st.set == 0;
   const bool to_ring = !last && st.set + 1 < st.sets;
   const bool to_scratch = !last && st.set + 1 == st.sets;
+  // split slab: into warp 0's ring of the next block, out of the last
+  // warp of the block before
+  const bool to_peer = to_ring && warp + 1 == kSets;
+  const bool from_peer = from_ring && warp == 0;
+  // this block's rank in a split slab, and the item's counters, taken
+  // where they are used (what is held across the sweep costs the packed
+  // kernel registers, which it has none to spare of)
+  auto rank = [&]() { return st.set / kSets; };
+  auto progress = [&]() -> int* {
+    return rank() > 0 ? peer_ptr(S.progress, 0) : S.progress;
+  };
   // which counter of `progress` this warp publishes: set 0 and the last
   // set of a pipeline do
   const int publishes = st.sets == 1 ? -1 : st.set == 0 ? 0 :
@@ -294,7 +429,7 @@ __device__ __forceinline__ int32_t sweep_tiles(
   auto fetch = [&](int c) {
     const int cols = min(T, L - c * T);
     if (gated) {
-      while (*(volatile int*)&S.progress[1] < gate + c) __nanosleep(32);
+      while (load_count(&progress()[1]) < gate + c) __nanosleep(32);
       __threadfence();
     }
     // residues: 16-byte chunk lane % 2 of column lane / 2
@@ -342,7 +477,10 @@ __device__ __forceinline__ int32_t sweep_tiles(
     int slot = c & 1;
     if (from_ring) {
       slot = st.n_in % kSlots;
-      mbar_wait(&in.full[slot], (st.n_in / kSlots) & 1);
+      if (from_peer)
+        mbar_wait_cluster(&in.full[slot], (st.n_in / kSlots) & 1);
+      else
+        mbar_wait(&in.full[slot], (st.n_in / kSlots) & 1);
     }
     const int32_t* in_h = &in.hf[slot][0][0][lane];
     const int32_t* in_f = &in.hf[slot][1][0][lane];
@@ -351,15 +489,23 @@ __device__ __forceinline__ int32_t sweep_tiles(
     int out_step = kGroupLanes;
     int out_slot = 0;
     if (to_ring) {
-      WarpShared<U>& next = S.warp[warp + 1];
       out_slot = st.n_out % kSlots;
-      mbar_wait(&next.empty[out_slot], ((st.n_out / kSlots) & 1) ^ 1);
-      out_h = &next.hf[out_slot][0][0][lane];
-      out_f = &next.hf[out_slot][1][0][lane];
+      const int parity = ((st.n_out / kSlots) & 1) ^ 1;
+      WarpShared<U>* next;
+      if (to_peer) {
+        next = peer_ptr(&S.warp[0], rank() + 1);
+        mbar_wait_cluster(&S.sent[out_slot], parity);
+      } else {
+        next = &S.warp[warp + 1];
+        mbar_wait(&next->empty[out_slot], parity);
+      }
+      out_h = &next->hf[out_slot][0][0][lane];
+      out_f = &next->hf[out_slot][1][0][lane];
       out_step = kWarpLanes;
     }
-    if (held)
-      while (*(volatile int*)&S.progress[0] < hold + c) __nanosleep(32);
+    if (held) {
+      while (load_count(&progress()[0]) < hold + c) __nanosleep(32);
+    }
     const int8_t* rs = &in.res[c & 1][0][lane];
     if constexpr (kAhead) {
       // column j + 1's operands leave shared memory before column j's chain
@@ -401,13 +547,22 @@ __device__ __forceinline__ int32_t sweep_tiles(
     }
     ++st.n_done;
     if (from_ring || to_ring || publishes >= 0) {
+      // the two slots again, from the counts: held across the column loop
+      // they cost the packed kernel a spilled register
+      const int in_slot = st.n_in % kSlots, to_slot = st.n_out % kSlots;
       __syncwarp();                 // every lane has read and stored
+      // each lane releases its own stores into the next block's ring
+      if (to_peer) mbar_arrive_peer(&S.warp[0].full[to_slot], rank() + 1);
       if (lane == 0) {
-        if (from_ring) mbar_arrive(&in.empty[slot]);
-        if (to_ring) mbar_arrive(&S.warp[warp + 1].full[out_slot]);
+        if (from_peer)
+          mbar_arrive_peer(&S.sent[in_slot], rank() - 1);
+        else if (from_ring)
+          mbar_arrive(&in.empty[in_slot]);
+        if (to_ring && !to_peer)
+          mbar_arrive(&S.warp[warp + 1].full[to_slot]);
         if (publishes >= 0) {
           if (to_scratch) __threadfence();
-          *(volatile int*)&S.progress[publishes] = st.n_done;
+          store_count(&progress()[publishes], st.n_done);
         }
       }
     }
@@ -426,7 +581,8 @@ struct OneSegment {
   }
 };
 
-// One block scores one work item for every segment.  `seg(s, r0, n)` gives
+// One block scores one work item for every segment (the blocks of a
+// cluster together score a split slab).  `seg(s, r0, n)` gives
 // segment s as (first row, row count) into q; scores is int32[n_segs,
 // n_groups, 8, 128], zeroed before the launch (the sets of the long role
 // merge their maxima with atomicMax).
@@ -442,8 +598,15 @@ __device__ __forceinline__ void score_item(
   const int g = work[2 * blockIdx.x];
   const int part = work[2 * blockIdx.x + 1];
   const bool pipelined = part >= kRowsPerGroup;
-  const int slab = pipelined ? part - kRowsPerGroup : part * kQuarters + warp;
-  WarpState st = {pipelined ? warp : 0, pipelined ? kSets : 1, 0, 0, 0};
+  // a split slab's blocks are the cluster's, in rank order
+  const bool split = part >= kSplitFrom;
+  const int rank = split ? cluster_rank() : 0;
+  const int blocks = split ? cluster_blocks() : 1;
+  const int slab = !pipelined ? part * kQuarters + warp
+                              : (part - kRowsPerGroup) % kSlabsPerGroup;
+  WarpState st = {pipelined ? rank * kSets + warp : 0,
+                  pipelined ? blocks * kSets : 1, 0, 0, 0};
+  if (split) cluster_sync();        // every block's barriers are ready
   const size_t lane0 = (size_t)slab * kWarpLanes;
   const size_t base = (size_t)groups[2 * g] * kGroupLanes + lane0;
   const int L = groups[2 * g + 1];
@@ -469,6 +632,53 @@ __device__ __forceinline__ void score_item(
     else if (best > 0)
       atomicMax(out, best);
   }
+  // no peer stores here any more (only a split slab's pipeline has more
+  // sets than a block has warps)
+  if (st.sets > kSets) cluster_sync();
+}
+
+// Launches `kernel` over n_items blocks of kRowLanes threads on `stream`: a
+// plain launch for cluster == 1, else a launch of clusters of `cluster`
+// blocks (a work table with split slabs).  Returns the launch's error.
+template <class... Params, class... Args>
+inline int launch_items(void (*kernel)(Params...), int n_items, int cluster,
+                        void* stream, Args... args) {
+  if (cluster == 1) {
+    kernel<<<n_items, kRowLanes, 0, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_items);
+  cfg.blockDim = dim3(kRowLanes);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The clusters of `cluster` blocks of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+template <class... Params>
+inline int max_active_clusters(void (*kernel)(Params...), int cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 1024);
+  cfg.blockDim = dim3(kRowLanes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // True where the 16-byte copies of the sweep can address the buffer.

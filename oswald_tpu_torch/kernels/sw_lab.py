@@ -20,7 +20,8 @@ the (variant, strip_rows, load_ahead) triples the kernel library holds; the
 wrapper refuses any other, on every device.  On a CUDA tensor the wrapper
 launches the kernel; on a CPU tensor it runs `sw_groups_lab_ref`, plain
 PyTorch that carries out the same variant's algebra on tensors.  Inputs,
-`work` and output are those of `sw_groups`.
+`work` and output are those of `sw_groups`; a table that splits slabs over
+clusters launches here as its `plain()` table, each split slab one block.
 """
 
 import re
@@ -31,7 +32,8 @@ from oswald_tpu_torch.kernels.sw_lanes import (STRIP_ROWS, TILE_COLS,
                                                _check, _engine_step,
                                                _launch, _tiled_ref,
                                                score_groups_by_length,
-                                               sw_groups_ref, sw_lanes_ref)
+                                               sw_groups_ref, sw_lanes_ref,
+                                               work_table)
 
 # variant name -> the kernel's template argument (sw::LabVariant)
 VARIANTS = {"base": 0, "fscan": 1, "pmax": 2, "noadj": 3, "ks": 4, "pre": 5,
@@ -81,6 +83,8 @@ def sw_groups_lab(residues, groups, query, submat, open_gap: int,
     if residues.device.type == "cpu":
         return sw_groups_lab_ref(residues, groups, query, submat, open_gap,
                                  extend_gap, variant, scratch, strip_rows)
+    # the lab launches plain grids: split slabs go as one block each
+    work = (work if work is not None else work_table(groups)).plain()
     out, launched = _launch("sw_groups_lab", residues, groups, query, None,
                             submat, open_gap, extend_gap, scratch, work,
                             (v, int(bool(load_ahead)), int(strip_rows)))

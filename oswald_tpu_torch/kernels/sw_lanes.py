@@ -22,7 +22,10 @@ Gap cost is open_gap + k * extend_gap.  Returns int32[G, 8, 128].
 `work_table(groups)`: the items (group, part) in launch order, bound to the
 `groups` tensor they were built for; any other pairing is refused.  Without
 it the wrapper takes `work_table(groups)`, which is built once for a tensor
-and kept on it.  The plain versions ignore it.
+and kept on it.  The plain versions ignore it.  A table that splits the
+slabs of the longest subjects over thread-block clusters (`WorkTable.cluster`
+> 1) makes the launch a cluster launch; `cluster_launches` and `split_slabs`
+count those.
 
 `sw_groups_packed` is the port of `sw_chunk` with `q_segs > 1` and with
 `seg_map`: several independent queries packed along the rows and scored in
@@ -57,11 +60,18 @@ TILE_COLS = 8         # T: columns of one staged tile
 SETS = 4              # W: warps of a block; sets of a long item's pipeline
 ROWS_PER_GROUP = GROUP_SHAPE[0]
 SLABS_PER_GROUP = ROWS_PER_GROUP * SETS     # 32-lane slabs of a group
+# parts from SPLIT_FROM on are split slabs: part = SPLIT_FROM + 32 r + slab
+# is block r of the cluster that sweeps the slab (csrc/sw_tile.cuh)
+SPLIT_FROM = ROWS_PER_GROUP + SLABS_PER_GROUP
+MAX_CLUSTER = 8       # blocks of a split slab's cluster: the portable most
 # groups of at least this many columns are dealt out as 32-lane slabs whose
 # strips the four warps pipeline (the long role); shorter ones as 128-lane
-# rows.  Measured over a SwissProt-sized database (NVIDIA H100 80GB HBM3,
-# 700.00 W; `python -m oswald_tpu_torch.lab --long-from ...`): sw_groups at
-# 512 rows takes 38.63 / 39.02 / 40.11 ms from 512 / 1024 / 2048 columns on,
+# rows.  The slabs of the longest groups may be split further, over the
+# blocks of a cluster: not by this threshold but by the launch's balanced
+# share (work_table), which `tune` does not set.  Measured over a
+# SwissProt-sized database (NVIDIA H100 80GB HBM3, 700.00 W; `python -m
+# oswald_tpu_torch.lab --long-from ...`): sw_groups at 512 rows takes
+# 38.63 / 39.02 / 40.11 ms from 512 / 1024 / 2048 columns on,
 # sw_groups_packed at 2 x 512 rows 80.51 / 80.09 / 81.16 ms, at 8 x 65 rows
 # 49.17 / 48.50 / 48.35 ms: flat.  An earlier build of the same design took
 # 55.0 ms from 1024 on, 54.8 from 4096 on (packed 2 x 512: 101.0 against
@@ -97,6 +107,10 @@ def fill_long_from(n_groups: int, long_from: int = LONG_FROM) -> int:
 launches = 0
 # the same for sw_groups_packed
 launches_packed = 0
+# launches of either kernel that ran thread-block clusters (a work table
+# with split slabs), and the slabs those launches split, summed
+cluster_launches = 0
+split_slabs = 0
 
 
 def _check(residues, groups, query, submat, scratch, segs=None, work=None):
@@ -150,13 +164,17 @@ def _check(residues, groups, query, submat, scratch, segs=None, work=None):
 class WorkTable:
     """The launch order of one group table, bound to it.
 
-    `items` is int32[N, 2] on the groups' device: (group, part) in launch
-    order.  A group dealt out as rows has the 8 parts 0..7, a pipelined one
-    the 32 parts 8..39.  The kernels index the group table and the scores
-    with these items unchecked, so the constructor holds them to the table
-    (every group exactly once, in one role; this copies `items` to the host)
-    and `is_for` lets only that `groups` tensor, unwritten since, launch
-    with them."""
+    `items` is int32[N, 2] on the groups' device: the (group, part) entry of
+    each block in launch order.  A group dealt out as rows has the 8 parts
+    0..7, a pipelined one the 32 slabs 8..39, each slab once, either as one
+    block (part 8 + slab) or split over the `cluster` blocks of an aligned
+    run (the run starts at a multiple of `cluster`; its block r holds part
+    SPLIT_FROM + 32 r + slab).  `cluster` is K, the blocks of every split
+    slab (1: nothing split, a plain launch), `split_slabs` the number of
+    split slabs.  The kernels index the group table and the scores with
+    these items unchecked, so the constructor holds them to the table (this
+    copies `items` to the host) and `is_for` lets only that `groups` tensor,
+    unwritten since, launch with them."""
 
     def __init__(self, items, groups):
         n = groups.shape[0]
@@ -168,21 +186,25 @@ class WorkTable:
                              f"{items.dtype}{list(items.shape)} on "
                              f"{items.device}")
         it = items.cpu().numpy()
-        it = it[np.lexsort((it[:, 1], it[:, 0]))]
-        ok = len(it) == 0 and n == 0
-        if len(it) and 0 <= it[0, 0] and it[-1, 0] < n:
-            counts = np.bincount(it[:, 0], minlength=n)
-            piped = counts == SLABS_PER_GROUP
-            first = np.cumsum(counts) - counts
-            want = np.arange(len(it)) - np.repeat(first, counts) + \
-                np.repeat(np.where(piped, ROWS_PER_GROUP, 0), counts)
-            ok = bool(((counts == ROWS_PER_GROUP) | piped).all()) and \
-                np.array_equal(it[:, 1], want)
-        if not ok:
+        runs = _split_runs(it)
+        if runs is None:
+            raise ValueError(f"sw_groups: work items are no launch order of "
+                             f"these {n} groups: a split slab needs 2 to "
+                             f"{MAX_CLUSTER} blocks, each of its own rank, "
+                             f"on an aligned run of the cluster's size")
+        self.cluster, starts = runs
+        # the table with each split slab as one block at its run's place
+        plain = it[(it[:, 1] < SPLIT_FROM) |
+                   np.isin(np.arange(len(it)), starts)].copy()
+        plain[plain[:, 1] >= SPLIT_FROM, 1] -= SPLIT_FROM - ROWS_PER_GROUP
+        if not _one_launch_order(plain, n):
             raise ValueError(f"sw_groups: work items are no launch order of "
                              f"these {n} groups: every group needs its parts "
                              f"0..7 or 8..39 exactly once")
+        self.split_slabs = len(starts)
         self.items = items
+        self._plain = self if self.cluster == 1 else WorkTable(
+            torch.from_numpy(plain).to(items.device), groups)
         self._groups = weakref.ref(groups)
         self._version = groups._version
 
@@ -191,6 +213,51 @@ class WorkTable:
 
     def is_for(self, groups) -> bool:
         return self._groups() is groups and self._version == groups._version
+
+    def plain(self) -> "WorkTable":
+        """The same launch with nothing split: each split slab one block of
+        the long role, in its run's place (this table where nothing is
+        split), bound to the same groups.  The lab kernel, which has no
+        cluster path, launches so."""
+        return self._plain
+
+
+def _split_runs(it):
+    """(K, the first entry of each split slab's run) of work items
+    int[N, 2] whose split slabs lie on aligned runs of K blocks of ranks
+    0..K-1 (K = 1 and none where nothing is split), else None."""
+    r, slab = np.divmod(it[:, 1].astype(np.int64) - SPLIT_FROM,
+                        SLABS_PER_GROUP)
+    split = it[:, 1] >= SPLIT_FROM
+    if not split.any():
+        return 1, np.zeros(0, np.int64)
+    K = int(r[split].max()) + 1
+    starts = np.flatnonzero(split & (r == 0))
+    if not 2 <= K <= MAX_CLUSTER or len(it) % K or \
+            int(split.sum()) != K * len(starts) or (starts % K).any():
+        return None
+    run = starts[:, None] + np.arange(K)
+    ok = (split[run] & (r[run] == np.arange(K)) &
+          (it[run, 0] == it[starts, 0][:, None]) &
+          (slab[run] == slab[starts][:, None])).all()
+    return (K, starts) if ok else None
+
+
+def _one_launch_order(it, n) -> bool:
+    """Whether items int[N, 2] with no split slab name every group of n
+    once: its parts 0..7 or 8..39, each once."""
+    if len(it) == 0:
+        return n == 0
+    it = it[np.lexsort((it[:, 1], it[:, 0]))]
+    if not (0 <= it[0, 0] and it[-1, 0] < n):
+        return False
+    counts = np.bincount(it[:, 0], minlength=n)
+    piped = counts == SLABS_PER_GROUP
+    first = np.cumsum(counts) - counts
+    want = np.arange(len(it)) - np.repeat(first, counts) + \
+        np.repeat(np.where(piped, ROWS_PER_GROUP, 0), counts)
+    return bool(((counts == ROWS_PER_GROUP) | piped).all()) and \
+        np.array_equal(it[:, 1], want)
 
 
 def work_table(groups, long_from: int = None, host=None) -> WorkTable:
@@ -203,24 +270,40 @@ def work_table(groups, long_from: int = None, host=None) -> WorkTable:
     one slab).  By default `long_from` is `fill_long_from(G)`: LONG_FROM for
     a table whose rows fill the card and 0 for a smaller one, so a single
     group, or a small slice of a streamed database, is pipelined whatever
-    its length.  The cost of an item is its block's
-    critical path in columns per strip, the same for every query, so one
-    table serves both kernels and every launch on `groups`.
+    its length.  The cost of an item is its block's critical path in
+    columns per strip, the same for every query, so one table serves both
+    kernels and every launch on `groups`.
+
+    Split slabs.  The balanced share of a launch is the sum of its items'
+    costs over card_blocks(), the block slots of the card: what every
+    block would sweep if the work spread evenly.  A slab whose cost L
+    exceeds it would hold the whole launch behind its one block (the
+    release database's 35,232-column slabs are 2.6 times the share), so it
+    is split over a cluster of K blocks: 4 K sets, a critical path of L / K.
+    K is one for the table, the smallest power of two up to MAX_CLUSTER for
+    which the longest slab's L / K is at or below the share.  It is taken
+    per table and not per launch: the query's strips S scale the critical
+    path, L ceil(S / 4 K), and the share alike, so their ratio moves only
+    where S < 4 K (a query under 256 rows at K = 4), and there a split slab
+    has at most one strip per set, the least path any K gives it.  Split
+    slabs go first, each on an aligned run of K blocks; every other item is
+    one block, by descending cost as above, so a table that splits nothing
+    is the one-block roles' launch order item for item (a plain launch).
 
     groups: int32[G, 2] (first column, L), a tensor (an array becomes a CPU
     tensor); the items go to its device.  The table is built on the host,
     from `host` (an array or CPU tensor equal to `groups`) where the caller
     has one, else from a copy of `groups`, which synchronises a CUDA device.
-    The default table (`long_from` None) is kept on the tensor and returned
-    again until the tensor is written."""
+    The default table (`long_from` None) is kept on the tensor and
+    returned again until the tensor is written."""
     if not isinstance(groups, torch.Tensor):
         groups = torch.from_numpy(np.ascontiguousarray(groups, np.int32))
     kept = getattr(groups, "_sw_work_table", None)
-    if long_from is None and kept is not None and kept.is_for(groups):
+    default = long_from is None
+    if default and kept is not None and kept.is_for(groups):
         return kept
     table = np.asarray(host if host is not None else groups.cpu())
     L = table.reshape(-1, 2)[:, 1].astype(np.int64)
-    default = long_from is None
     if default:
         long_from = fill_long_from(len(L))
     is_long = L >= long_from
@@ -230,8 +313,25 @@ def work_table(groups, long_from: int = None, host=None) -> WorkTable:
     part = np.arange(len(g)) - np.repeat(first, n_parts) + \
         np.where(is_long, ROWS_PER_GROUP, 0)[g]
     cost = np.where(is_long, L, SETS * L)[g]
+    total = int(cost.sum())
+    # the groups whose slabs lie above the share: L > total / blocks
+    above = is_long & (L * card_blocks() > total)
+    split = above[g]
+    K = 1
+    if above.any():
+        top = int(L[above].max())
+        K = 2
+        while K < MAX_CLUSTER and top * card_blocks() > K * total:
+            K *= 2
     order = np.argsort(-cost, kind="stable")
-    items = np.stack([g[order], part[order]], axis=1).astype(np.int32)
+    rest = order[~split[order]]
+    heavy = order[split[order]]
+    runs = np.stack([np.repeat(g[heavy], K),
+                     np.repeat(part[heavy] - ROWS_PER_GROUP + SPLIT_FROM, K)
+                     + np.tile(np.arange(K) * SLABS_PER_GROUP, len(heavy))],
+                    axis=1)
+    items = np.concatenate([runs, np.stack([g[rest], part[rest]], axis=1)]
+                           ).astype(np.int32).reshape(-1, 2)
     work = WorkTable(torch.from_numpy(items).to(groups.device), groups)
     if default:
         groups._sw_work_table = work
@@ -239,10 +339,13 @@ def work_table(groups, long_from: int = None, host=None) -> WorkTable:
 
 
 def _launch(name, residues, groups, rows, segs, submat, open_gap,
-            extend_gap, scratch, work, extra=()):
+            extend_gap, scratch, work, extra=None):
     """Launch kernel `name` on tensors that passed _check, with the ints
-    `extra` after the stream.  Returns (int32[S, G, 8, 128], whether a
-    kernel was launched: an empty table launches nothing)."""
+    `extra` after the stream (None: an engine kernel's, the table's
+    cluster size, counted in cluster_launches and split_slabs).  Returns
+    (int32[S, G, 8, 128], whether a kernel was launched: an empty table
+    launches nothing)."""
+    global cluster_launches, split_slabs
     dev = residues.device
     if dev.type != "cuda":
         raise ValueError(f"sw_groups: no kernel for device {dev}")
@@ -266,9 +369,24 @@ def _launch(name, residues, groups, rows, segs, submat, open_gap,
             residues.data_ptr(), groups.data_ptr(), n, work.items.data_ptr(),
             len(work), *query_args, submat.data_ptr(), int(open_gap),
             int(extend_gap), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, *extra)
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            *((work.cluster,) if extra is None else extra))
     build.check(lib, name, err)
+    if extra is None and work.cluster > 1:
+        cluster_launches += 1
+        split_slabs += work.split_slabs
     return out, True
+
+
+def max_active_clusters(cluster: int, name: str = "sw_groups") -> int:
+    """The clusters of `cluster` blocks of engine kernel `name` the current
+    card holds at once (cudaOccupancyMaxActiveClusters); builds the kernel
+    if needed."""
+    lib = build.load(name)
+    n = getattr(lib, f"{name}_max_active_clusters")(int(cluster))
+    if n < 0:
+        build.check(lib, name, -n)
+    return n
 
 
 def sw_groups(residues, groups, query, submat, open_gap: int,
@@ -486,14 +604,22 @@ def _tiled_ref(residues, groups, q_packed, segs, submat, open_gap, extend_gap,
         c0, L = table[g]
         if part < ROWS_PER_GROUP:
             lo, n_lanes, sets = part * SETS * slab, SETS * slab, 1
-        else:
+        elif part < SPLIT_FROM:
             lo, n_lanes, sets = (part - ROWS_PER_GROUP) * slab, slab, SETS
+        else:
+            rank, i = divmod(part - SPLIT_FROM, SLABS_PER_GROUP)
+            if rank:
+                continue                 # block 0 of the run stands for all
+            lo, n_lanes, sets = i * slab, slab, SETS * work.cluster
         cols = residues[c0:c0 + L].reshape(L, lanes_g)[:, lo:lo + n_lanes]
         cols = cols.to(torch.long)
         zero = torch.zeros(n_lanes, dtype=torch.int32)
-        # the hand-over rows: the ring or the scratch, column by column
-        hrow = torch.zeros((L, n_lanes), dtype=torch.int32)
-        frow = torch.zeros_like(hrow)
+        # the hand-over rows, column by column: set 0 reads the scratch,
+        # which the last set wrote a round before; set w > 0 its own ring,
+        # which set w - 1 filled (from the block before where w % 4 == 0)
+        scratch = [torch.zeros((L, n_lanes), dtype=torch.int32)
+                   for _ in range(2)]
+        rings = {}
         k = 0                                    # strips so far, all segments
         for s, (r0, n) in enumerate(seg_list):
             r0 = min(max(r0, 0), q.numel())
@@ -509,17 +635,24 @@ def _tiled_ref(residues, groups, q_packed, segs, submat, open_gap, extend_gap,
                          torch.zeros((n_lanes, U), dtype=torch.int32),
                          zero, best[k % sets]]
                 first, last = t == 0, t == n_strips - 1
+                w = k % sets
+                src = None if first else scratch if w == 0 else rings.pop(w)
+                dst = None if last else scratch if w + 1 == sets else \
+                    [torch.zeros((L, n_lanes), dtype=torch.int32)
+                     for _ in range(2)]
                 for j0 in range(0, L, T):
                     j1 = min(j0 + T, L)
-                    h_in = torch.zeros_like(hrow[j0:j1]) if first else \
-                        hrow[j0:j1].clone()
+                    h_in = torch.zeros((j1 - j0, n_lanes), dtype=torch.int32) \
+                        if first else src[0][j0:j1].clone()
                     f_in = torch.zeros_like(h_in) if first else \
-                        frow[j0:j1].clone()
+                        src[1][j0:j1].clone()
                     h_out, f_out = _strip_columns(cols[j0:j1], prof, h_in,
                                                   f_in, oe, e, state, step)
                     if not last:
-                        hrow[j0:j1], frow[j0:j1] = h_out, f_out
-                best[k % sets] = state[3]
+                        dst[0][j0:j1], dst[1][j0:j1] = h_out, f_out
+                if dst is not None and w + 1 < sets:
+                    rings[w + 1] = dst
+                best[w] = state[3]
                 k += 1
             merged = torch.stack(best).amax(dim=0)
             out[s, g, lo:lo + n_lanes] = torch.maximum(

@@ -117,6 +117,33 @@ def test_search_text_report(fasta_db, capsys):
     assert "engine_setup" in out and "search" in out
 
 
+def test_search_metrics_report_cluster_launches(fasta_db, capsys,
+                                               monkeypatch):
+    """--metrics reports the search's engine kernel launches, the share of
+    them that ran thread-block clusters and the slabs they split: the
+    counters' growth over the search alone."""
+    from oswald_tpu_torch.engine import SearchEngine
+    from oswald_tpu_torch.kernels import sw_lanes
+    real = SearchEngine.search_many
+
+    def counted(self, *a, **kw):
+        sw_lanes.launches += 3
+        sw_lanes.cluster_launches += 2
+        sw_lanes.split_slabs += 64
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(SearchEngine, "search_many", counted)
+    args = ["search", "-q", str(fasta_db / "q.fasta"), "-d",
+            str(fasta_db / "db"), "--device", "cpu", "--metrics"]
+    assert main(args + ["--json"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["launches"] == {"kernels": 3, "cluster": 2,
+                                "split_slabs": 64}
+    assert main(args) == 0
+    assert "Kernel launches:\t\t3 (2 in thread-block clusters, 66.7%; " \
+        "64 slabs split)" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("verb,flags,name", [
     ("search", ["--distributed"], "--distributed"),
     ("search", ["--devices", "2"], "--devices > 1"),

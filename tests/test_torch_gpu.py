@@ -211,6 +211,132 @@ def test_pipelined_hand_over_is_stable(cuda):
         assert torch.equal(got_p, want_p)
 
 
+# A giant among short groups, as the release database's last group is among
+# its 528 others: 80 groups of 96 columns (rows) and one of 2048 (slabs),
+# whose slabs the card's share splits over clusters of 4 blocks
+GIANT_SHAPES = [(80, 96), (1, 2048)]
+
+
+def _giant_inputs(rng, m, matrix="blosum62"):
+    args = _inputs(rng, GIANT_SHAPES, m, matrix, torch.device("cuda"))
+    work = work_table(args[1], LONG_FROM)
+    assert work.cluster == 4 and work.split_slabs == 32
+    return args, work
+
+
+@pytest.mark.parametrize("m,matrix,og,eg", [
+    (5478, "blosum62", 10, 2), (144, "pam30", 9, 1)])
+def test_split_kernel_matches_plain_version(cuda, m, matrix, og, eg):
+    """The giant's slabs swept by clusters: equal to the plain version and
+    to the same launch with nothing split, one cluster launch counted."""
+    rng = np.random.default_rng(m)
+    args, work = _giant_inputs(rng, m, matrix)
+    before = (sw_lanes.cluster_launches, sw_lanes.split_slabs)
+    got = sw_groups(*args, og, eg, work=work)
+    torch.cuda.synchronize()
+    assert (sw_lanes.cluster_launches, sw_lanes.split_slabs) == \
+        (before[0] + 1, before[1] + 32)
+    want = sw_groups_ref(*args, og, eg)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    plain = sw_groups(*args, og, eg, work=work.plain())
+    assert sw_lanes.cluster_launches == before[0] + 1
+    assert torch.equal(plain, got)
+
+
+def test_split_packed_kernel_matches_plain_version(cuda):
+    """A packed batch whose strips cross the blocks of the giant's
+    clusters and wrap to set 0, with a caller's scratch of old values."""
+    rng = np.random.default_rng(35)
+    (res, table, _, sm), work = _giant_inputs(rng, 1)
+    qlens = [1, 7, 16, 300, 33, 2 * STRIP_ROWS * SETS * 4, 5, 700]
+    q = torch.from_numpy(_protein(rng, sum(qlens)).astype(np.int32)).to(cuda)
+    starts = np.concatenate([[0], np.cumsum(qlens)[:-1]])
+    segs = torch.tensor(list(zip(starts.tolist(), qlens)), dtype=torch.int32,
+                        device=cuda)
+    scratch = torch.full((2,) + tuple(res.shape), -7, dtype=torch.int32,
+                         device=cuda)
+    got = sw_groups_packed(res, table, q, segs, sm, 10, 2, scratch, work)
+    want = sw_groups_packed_ref(res, table, q, segs, sm, 10, 2)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    plain = sw_groups_packed(res, table, q, segs, sm, 10, 2, scratch,
+                             work.plain())
+    assert torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("K", [2, 4, 8])
+def test_split_hand_over_is_stable(cuda, K, monkeypatch):
+    """The waits between the blocks of a cluster, like those between the
+    warps of a block, fail in one lane, sometimes: thirty split launches of
+    each kernel in a row, on a caller's scratch, equal the plain version,
+    and so does the plain launch of the same table."""
+    rng = np.random.default_rng(36 + K)
+    res, table, q, sm = _inputs(rng, [(3, 40), (2, 330), (3, 9)], 700,
+                                "blosum62", cuda)
+    qlens = [1, 17, 3, 200, 16, 16, 31, 2, 300, 5, 64, 45]
+    starts = np.concatenate([[0], np.cumsum(qlens)[:-1]])
+    segs = torch.tensor(list(zip(starts.tolist(), qlens)), dtype=torch.int32,
+                        device=cuda)
+    # a card of as many block slots as split the 330-column slabs over K
+    monkeypatch.setattr(sw_lanes, "card_blocks", lambda: 32 * 807 * K // 330)
+    work = work_table(table, 1)
+    assert work.cluster == K and work.split_slabs == 64
+    want = sw_groups_ref(res, table, q, sm, 10, 2)
+    want_p = sw_groups_packed_ref(res, table, q, segs, sm, 10, 2)
+    scratch = torch.empty((2,) + tuple(res.shape), dtype=torch.int32,
+                          device=cuda)
+    for table_w in [work] * 30 + [work.plain()]:
+        got = sw_groups(res, table, q, sm, 10, 2, scratch, table_w)
+        got_p = sw_groups_packed(res, table, q, segs, sm, 10, 2, scratch,
+                                 table_w)
+        assert torch.equal(got, want)
+        assert torch.equal(got_p, want_p)
+
+
+def test_refused_split_launch_raises(cuda):
+    """A split table's launch refused by the entry point (a scratch its
+    copies cannot address) raises, and counts no launch."""
+    rng = np.random.default_rng(37)
+    args, work = _giant_inputs(rng, 60)
+    before = (sw_lanes.launches, sw_lanes.cluster_launches)
+    with pytest.raises(RuntimeError, match="sw_groups kernel launch failed"):
+        sw_groups(*args, 10, 2, _misaligned_scratch(args[0], cuda), work)
+    assert (sw_lanes.launches, sw_lanes.cluster_launches) == before
+
+
+def test_cuda_host_stream_slice_with_giant_group(cuda):
+    """A host_stream slice that holds a giant group splits its slabs, as
+    the resident table does; every launch equals the resident engine's."""
+    rng = np.random.default_rng(38)
+    lengths = rng.integers(1, 120, size=30000)
+    lengths[::1000] = 3000                   # one group of 30 giants
+    seqs = [_protein(rng, int(n)) for n in lengths]
+    db = pack_sequences(np.concatenate(seqs), lengths,
+                        [f"s{i}" for i in range(len(seqs))])
+    cfg = dict(top=9, batch_query_pack_rows=256)
+    res = SearchEngine(db, SearchConfig(**cfg))
+    hs = SearchEngine(db, SearchConfig(profile_mode="host_stream",
+                                       host_stream_slice_mb=1, **cfg))
+    assert res.state.work.cluster > 1
+    giant = [sl for sl in hs._hs_slices if sl.work.split_slabs]
+    assert len(hs._hs_slices) > 1 and giant
+    queries = [_protein(rng, k) for k in (30, 300, 12, 1000)]
+    for q in queries:
+        before = sw_lanes.cluster_launches
+        np.testing.assert_array_equal(hs.score_all(q).cpu().numpy(),
+                                      res.score_all(q).cpu().numpy())
+        assert sw_lanes.cluster_launches >= before + len(giant) + 1
+    for a, b in zip(res.search_many(queries), hs.search_many(queries)):
+        np.testing.assert_array_equal(a.scores, b.scores)
+        np.testing.assert_array_equal(a.seq_ids, b.seq_ids)
+
+
+def test_max_active_clusters_hold_the_card(cuda):
+    """The card holds clusters of every split size of both kernels."""
+    for name in ("sw_groups", "sw_groups_packed"):
+        for K in (2, 4, 8):
+            assert sw_lanes.max_active_clusters(K, name) >= 1
+
+
 def test_bad_work_table_rejected(cuda):
     rng = np.random.default_rng(32)
     args = _inputs(rng, [(1, 32)], 5, "blosum62", cuda)

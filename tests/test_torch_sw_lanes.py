@@ -33,8 +33,9 @@ from oswald_tpu_torch.kernels import build, sw_lanes
 from oswald_tpu_torch.io import pack_sequences
 from oswald_tpu_torch.io.device_db import to_device, to_host_stream
 from oswald_tpu_torch.kernels.sw_lanes import (CARD_BLOCKS, LONG_FROM,
-                                               ROWS_PER_GROUP,
+                                               MAX_CLUSTER, ROWS_PER_GROUP,
                                                SETS, SLABS_PER_GROUP,
+                                               SPLIT_FROM,
                                                STRIP_ROWS, TILE_COLS,
                                                sw_groups, sw_groups_packed,
                                                sw_groups_packed_ref,
@@ -175,12 +176,19 @@ def test_sw_groups_tiled_ref_matches_plain_version(m, long_from, tile_cols,
                               work=work_table(args[1], long_from),
                               tile_cols=tile_cols)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    # the order of the items does not matter to the scores
-    work = WorkTable(work_table(args[1], long_from).items.flip(0)
-                     .contiguous(), args[1])
+    # the order of the items does not matter to the scores (a split slab's
+    # run of blocks moves whole)
+    work = WorkTable(_reversed_runs(work_table(args[1], long_from)), args[1])
     again = sw_groups_tiled_ref(*args, og, eg, work=work,
                                 tile_cols=tile_cols)
     np.testing.assert_array_equal(again.numpy(), want.numpy())
+
+
+def _reversed_runs(work):
+    """The items of `work` with its aligned runs of `cluster` blocks in
+    the opposite order."""
+    K = work.cluster
+    return work.items.reshape(-1, K, 2).flip(0).reshape(-1, 2).contiguous()
 
 
 def _table_from_lengths(lengths):
@@ -192,26 +200,64 @@ def _table_from_lengths(lengths):
 
 
 def _check_work_table(table, long_from):
-    """The contract of work_table on int[G, 2] `table`."""
-    work = work_table(table, long_from).items
+    """The contract of work_table on int[G, 2] `table`: the items, and the
+    WorkTable's cluster size and split slabs."""
+    table_w = work_table(table, long_from)
+    work = table_w.items
     assert work.dtype == torch.int32 and work.shape[1] == 2
-    fills = ROWS_PER_GROUP * len(table) >= CARD_BLOCKS
+    fills = ROWS_PER_GROUP * len(table) >= sw_lanes.card_blocks()
     cut = long_from if long_from is not None else LONG_FROM if fills else 0
+    lengths = np.asarray(table).reshape(-1, 2)[:, 1].tolist()
+    # the balanced share: every item's cost over the card's blocks; the
+    # slabs above it are split over K blocks, the least power of two up to
+    # MAX_CLUSTER that brings the longest to the share
+    cost_of = {}
+    for g, L in enumerate(lengths):
+        for p in (range(ROWS_PER_GROUP, SPLIT_FROM) if L >= cut
+                  else range(ROWS_PER_GROUP)):
+            cost_of[(g, p)] = L * (1 if p >= ROWS_PER_GROUP else SETS)
+    share = sum(cost_of.values()) / sw_lanes.card_blocks()
+    heavy = {gp for gp, c in cost_of.items()
+             if gp[1] >= ROWS_PER_GROUP and c > share}
+    K = 1
+    if heavy:
+        top = max(cost_of[gp] for gp in heavy)
+        K = 2
+        while K < MAX_CLUSTER and top / K > share:
+            K *= 2
+    assert table_w.cluster == K and table_w.split_slabs == len(heavy)
     items = [tuple(x) for x in work.tolist()]
-    want = set()
-    for g, (_, L) in enumerate(np.asarray(table).tolist()):
-        parts = range(ROWS_PER_GROUP, ROWS_PER_GROUP + SLABS_PER_GROUP) \
-            if L >= cut else range(ROWS_PER_GROUP)
-        want |= {(g, p) for p in parts}
+    assert len(items) % K == 0
+    # split slabs first, each on an aligned run of K blocks of ranks 0..K-1,
+    # heaviest first; then every other (group, part) once
+    runs = [items[i:i + K] for i in range(0, K * len(heavy), K)]
+    for run in runs:
+        g, p = run[0]
+        assert [q for _, q in run] == [p + r * SLABS_PER_GROUP
+                                       for r in range(K)]
+        assert {h for h, _ in run} == {g} and SPLIT_FROM <= p < \
+            SPLIT_FROM + SLABS_PER_GROUP
+    split = [(run[0][0], run[0][1] - SPLIT_FROM + ROWS_PER_GROUP)
+             for run in runs]
+    rest = items[K * len(heavy):]
+    assert all(p < SPLIT_FROM for _, p in rest)
     # every (group, part) exactly once
-    assert len(items) == len(want) and set(items) == want
-    lengths = np.asarray(table)[:, 1]
-    cost = [int(lengths[g]) * (1 if p >= ROWS_PER_GROUP else SETS)
-            for g, p in items]
-    # descending cost, equal costs in (group, part) order
-    assert cost == sorted(cost, reverse=True)
-    for (a, ca), (b, cb) in zip(zip(items, cost), zip(items[1:], cost[1:])):
-        assert ca > cb or a < b
+    assert sorted(split + rest) == sorted(cost_of) and \
+        set(split) == heavy
+    for order in (split, rest):
+        cost = [cost_of[gp] for gp in order]
+        # descending cost, equal costs in (group, part) order
+        assert cost == sorted(cost, reverse=True)
+        for (a, ca), (b, cb) in zip(zip(order, cost),
+                                    zip(order[1:], cost[1:])):
+            assert ca > cb or a < b
+    # with nothing split the table is the one-block roles', item for item,
+    # and the plain launch of a split table is that table with each split
+    # slab at its run's place
+    plain = [tuple(x) for x in table_w.plain().items.tolist()]
+    assert table_w.plain().cluster == 1 and (K > 1 or
+                                             table_w.plain() is table_w)
+    assert plain == split + rest
     return work
 
 
@@ -262,8 +308,11 @@ def test_work_table_of_device_state_and_host_stream_slices():
     assert st.work.is_for(st.groups) and work_table(st.groups) is st.work
     assert torch.equal(st.work.items,
                        _check_work_table(st.groups.numpy(), None))
-    assert int((st.work.items[:, 1] >= ROWS_PER_GROUP).sum()) == \
+    # the one long group's 32 slabs, each once: far above this small
+    # database's balanced share, so split
+    assert int((st.work.plain().items[:, 1] >= ROWS_PER_GROUP).sum()) == \
         SLABS_PER_GROUP
+    assert st.work.split_slabs == SLABS_PER_GROUP and st.work.cluster > 1
     hs = to_host_stream(db, "cpu", 1)
     assert len(hs.slices) > 1
     for sl in hs.slices:
@@ -566,6 +615,206 @@ def test_sw_groups_packed_tiled_ref_matches_plain_version(qlens, long_from):
     got = sw_groups_packed_tiled_ref(res, table, qt, segs, sm, 10, 2,
                                      work=work_table(table, long_from))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# Split slabs: the slabs of the longest groups swept by the 4 K warps of a
+# cluster of K blocks.  On a card of 32 K block slots a lone group's slabs
+# are split over K (the share of its 32 slabs is L * 32 / (32 K)); a giant
+# among short groups by the card's own share.
+SPLIT_KS = (2, 4, 8)
+
+
+def _card_for(monkeypatch, K):
+    """Plan work tables for a card on which a lone group splits over K."""
+    monkeypatch.setattr(sw_lanes, "card_blocks", lambda: SLABS_PER_GROUP * K)
+
+
+# strips 5, 3 and 1 (m 65, 33, 9): past the first block's sets at K = 2,
+# and fewer strips than sets at every K
+@pytest.mark.parametrize("K", SPLIT_KS)
+@pytest.mark.parametrize("L,m,G,matrix,og,eg", [
+    BIN_CASES[1], BIN_CASES[3], BIN_CASES[7]])
+def test_split_tiled_ref_matches_jax_bin(L, m, G, matrix, og, eg, K,
+                                        monkeypatch):
+    seq, query, sm, want = _bin_case(L, m, G, matrix, og, eg)
+    args = _torch_args([seq[:1]], query, sm)
+    _card_for(monkeypatch, K)
+    work = work_table(args[1], 1)
+    assert work.cluster == K and work.split_slabs == SLABS_PER_GROUP
+    got = sw_groups_tiled_ref(*args, og, eg, work=work)
+    np.testing.assert_array_equal(got.numpy(), want[:1])
+
+
+# short groups of 32 columns (rows) beside a 64-column giant (slabs), as
+# many as make the card's share split the giant over K blocks
+GIANT_AMONG_SHORT = {2: 20, 4: 10, 8: 2}
+
+
+@pytest.mark.parametrize("K", SPLIT_KS)
+def test_split_tiled_ref_giant_among_short_groups(K):
+    """The giant's strips cross every block of its cluster and wrap to
+    set 0 through the scratch rows: 4 K + 2 strips."""
+    rng = np.random.default_rng(40 + K)
+    bins = [_random_bin(rng, GIANT_AMONG_SHORT[K], 32),
+            _random_bin(rng, 1, 64)]
+    m = STRIP_ROWS * SETS * K + 2 * STRIP_ROWS - 5
+    args = _torch_args(bins, random_protein(rng, m), get_submat("blosum62"))
+    work = work_table(args[1], 40)
+    assert work.cluster == K and work.split_slabs == SLABS_PER_GROUP
+    assert len(work) == ROWS_PER_GROUP * GIANT_AMONG_SHORT[K] + \
+        SLABS_PER_GROUP * K
+    want = sw_groups_ref(*args, 10, 2)
+    got = sw_groups_tiled_ref(*args, 10, 2, work=work)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("K", SPLIT_KS)
+@pytest.mark.parametrize("L,G,layout,matrix,og,eg", [
+    PACKED_CASES[1], PACKED_CASES[3], PACKED_CASES[4]])
+def test_split_packed_tiled_ref_matches_jax_bin(L, G, layout, matrix, og, eg,
+                                                K, monkeypatch):
+    seq, sm, qp, segs, want = _packed_case(L, G, layout, matrix, og, eg)
+    res, table, _, smt = _torch_args([seq[:1]], qp[:1], sm)
+    _card_for(monkeypatch, K)
+    work = work_table(table, 1)
+    assert work.cluster == K
+    got = sw_groups_packed_tiled_ref(
+        res, table, torch.from_numpy(qp), torch.from_numpy(segs), smt, og,
+        eg, work=work)
+    np.testing.assert_array_equal(got.numpy(), want[:, :1])
+
+
+@pytest.mark.parametrize("K,qlens", [
+    # segments whose strips start inside a block and cross to the next
+    (2, [STRIP_ROWS * 9 + 5, 3, STRIP_ROWS, 40]),
+    (4, [1, 1, 1, 1, 1, 300]),
+    (4, [STRIP_ROWS * SETS * 4] * 2),          # each ends with a block
+    # more than a round of 32 sets, then short ones
+    (8, [STRIP_ROWS * 33, 7, 20]),
+    (8, [33]),                                 # fewer strips than sets
+])
+def test_split_packed_tiled_ref_matches_plain_version(K, qlens, monkeypatch):
+    """The strips of all segments are dealt to the 4 K sets of a split
+    slab in one sequence, across the blocks of its cluster."""
+    rng = np.random.default_rng(K * 100 + len(qlens))
+    res, table, qt, sm = _torch_args(
+        [_random_bin(rng, 1, 36)], random_protein(rng, sum(qlens)),
+        get_submat("blosum62"))
+    starts = np.concatenate([[0], np.cumsum(qlens)[:-1]])
+    segs = torch.tensor(list(zip(starts.tolist(), qlens)), dtype=torch.int32)
+    _card_for(monkeypatch, K)
+    work = work_table(table, 1)
+    assert work.cluster == K
+    want = sw_groups_packed_ref(res, table, qt, segs, sm, 10, 2)
+    got = sw_groups_packed_tiled_ref(res, table, qt, segs, sm, 10, 2,
+                                     work=work)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("lengths,long_from,blocks", [
+    # on a card of `blocks` slots, a lone group splits over K = blocks / 32,
+    # and two over half that
+    ([100], 1, 64), ([100], 1, 128), ([100], 1, 256), ([100], 1, 4096),
+    ([100, 100], 1, 256),
+    # a giant among groups that fill the card: only its slabs split
+    ([32] * 70 + [35232], None, None),
+    ([32] * 40 + [96] * 20 + [1024, 1500, 5504, 35232], None, None),
+    # two heavy lengths: both split, over the K of the longer
+    ([32] * 80 + [20000, 35232], None, None),
+    # small tables: every slab above the share splits
+    ([5504, 32, 1024, 32, 1023], None, None),
+    # nothing above the share: one block slot, or an even spread
+    ([100, 5504], 1, 1), ([64] * 100, None, None),
+])
+def test_split_work_table_contract(lengths, long_from, blocks, monkeypatch):
+    if blocks is not None:
+        monkeypatch.setattr(sw_lanes, "card_blocks", lambda: blocks)
+    table = _table_from_lengths(lengths)
+    work = _check_work_table(table, long_from)
+    again = work_table(torch.from_numpy(table), long_from)
+    assert torch.equal(again.items, work)
+
+
+def _release_like_lengths(rng, n_groups, giant):
+    """Group lengths of a length-sorted database: a lognormal body and,
+    unless `giant` is 0, one last group of that many columns."""
+    body = np.sort(np.clip(rng.lognormal(np.log(300), 0.6, n_groups), 32,
+                           5504)).astype(np.int64)
+    body = -(-body // 32) * 32
+    return body.tolist() + ([giant] if giant else [])
+
+
+def test_work_table_without_giants_is_the_one_block_order():
+    """A database capped where the card's share lies above its longest
+    slab splits nothing: its table is the one-block roles' launch order,
+    item for item, and the same database with a release's giant group splits that group
+    alone, over 4 blocks, leaving the other items in that order."""
+    rng = np.random.default_rng(2013)
+    lengths = _release_like_lengths(rng, 528, 0)
+    table = _table_from_lengths(lengths)
+    work = work_table(table)
+    L = np.asarray(lengths, np.int64)
+    is_long = L >= LONG_FROM
+    n_parts = np.where(is_long, SLABS_PER_GROUP, ROWS_PER_GROUP)
+    g = np.repeat(np.arange(len(L)), n_parts)
+    part = np.concatenate([np.arange(n) + (ROWS_PER_GROUP if lg else 0)
+                           for n, lg in zip(n_parts, is_long)])
+    cost = np.where(is_long, L, SETS * L)[g]
+    order = np.argsort(-cost, kind="stable")
+    one_block = np.stack([g[order], part[order]], axis=1)
+    assert work.cluster == 1 and work.split_slabs == 0 and \
+        work.plain() is work
+    np.testing.assert_array_equal(work.items.numpy(), one_block)
+    giant = _table_from_lengths(lengths + [35232])
+    split = work_table(giant)
+    assert split.cluster == 4 and split.split_slabs == SLABS_PER_GROUP
+    rest = split.items.numpy()[SLABS_PER_GROUP * 4:]
+    np.testing.assert_array_equal(rest, one_block)
+    _check_work_table(giant, None)
+
+
+def _split_items(monkeypatch, K=4):
+    """The items of a lone group split over K, and its table."""
+    _card_for(monkeypatch, K)
+    table = torch.from_numpy(_table_from_lengths([100]))
+    work = work_table(table, 1)
+    assert work.cluster == K
+    return work.items, table
+
+
+def _swap(t, i, j):
+    t[[i, j]] = t[[j, i]]
+
+
+@pytest.mark.parametrize("edit", [
+    # a run that starts off the cluster's alignment
+    lambda t: torch.cat([t[1:], t[:1]]),
+    # two blocks of a run in each other's place
+    lambda t: (_swap(t, 1, 2), t)[1],
+    # a run with a block of another slab
+    lambda t: (_swap(t, 3, 4), t)[1],
+    # a run one block short, and one of its blocks twice
+    lambda t: t[:-1],
+    lambda t: torch.cat([t[:-1], t[-2:-1]]),
+    # one block of a split slab alone (a cluster of 1)
+    lambda t: torch.cat([t[:1], t[4:].reshape(-1, 4, 2)[:, 0]]),
+    # ranks 0..15: beyond the portable cluster
+    lambda t: torch.cat([t.reshape(-1, 4, 2) + torch.tensor(
+        [0, 4 * r * SLABS_PER_GROUP], dtype=torch.int32) for r in range(4)],
+        dim=1).reshape(-1, 2),
+    # a split slab and the same slab as one block
+    lambda t: torch.cat([t, torch.tensor([[0, ROWS_PER_GROUP]] * 4,
+                                         dtype=torch.int32)]),
+])
+def test_split_work_table_refused(edit, monkeypatch):
+    """Items whose split slabs are not one aligned run of the cluster's
+    blocks, ranks 0..K-1 in order, each slab once, are refused before any
+    launch."""
+    items, table = _split_items(monkeypatch)
+    WorkTable(items, table)
+    bad = edit(items.clone()).contiguous()
+    with pytest.raises(ValueError, match="no launch order of these 1 groups"):
+        WorkTable(bad, table)
 
 
 def test_sw_groups_packed_cpu_runs_plain_version():

@@ -181,6 +181,24 @@ def test_profile_trace_holds_engine_ranges_in_order(engine, tmp_path):
     assert sum(a["residues"] for a in launches) == sum(LENGTHS)
 
 
+def test_engine_launch_args_name_the_split(db, engine, tmp_path):
+    """Each engine.launch range says whether its launches split slabs
+    over clusters: the cluster size of the engine's work table and its
+    split slabs, resident and across a host_stream sweep's slices."""
+    hs = SearchEngine(db, _config(profile_mode="host_stream",
+                                  host_stream_slice_mb=1), device="cpu")
+    for eng, tables in ((engine, [engine.state.work]),
+                        (hs, [sl.work for sl in hs._hs_slices])):
+        with profile_trace(str(tmp_path / eng.mode)):
+            eng.search_many(_queries())
+        got = [e["args"] for e in _ranges(tmp_path / eng.mode)
+               if e["name"] == "engine.launch"]
+        assert got and all(
+            a["cluster"] == max(t.cluster for t in tables) and
+            a["split_slabs"] == sum(t.split_slabs for t in tables)
+            for a in got)
+
+
 def test_profile_trace_holds_serve_dispatch_ranges(db, engine, tmp_path):
     """Each serve.dispatch range carries its request's id and queue wait,
     and holds the engine's four ranges in order; serve.wait ranges lie
