@@ -14,6 +14,9 @@ reference's search of the whole database:
   that id, limit 0;
 - hit_score_mismatch: hits whose score is not the reference's score of
   that query against that subject, limit 0;
+- alignment_mismatch (a configuration that aligns, and only there): hits
+  whose alignment is missing or not an optimal alignment of that query and
+  subject with the hit's score and its counts (`alignment.Judge`), limit 0;
 - topk_mismatch (sample): ranks whose (score, id) differ from the
   reference's top-k over the whole database, limit 0;
 - evalue_log_gap (sample): the widest |ln E - ln E_ref| over the sample's
@@ -39,6 +42,7 @@ class Answer:
     ids: np.ndarray = None       # int[k]
     titles: list = None
     evalues: np.ndarray = None   # float[k] or None
+    alignments: list = None      # [dict of the ten fields, or None]
 
 
 def _ln(e):
@@ -99,8 +103,9 @@ def _pair_groups(pairs):
     return groups.values()
 
 
-def check(ref, answers, sample, limits: dict, log=None):
-    """{name: (value, limit)} of every number compared."""
+def check(ref, answers, sample, limits: dict, log=None, judge=None):
+    """{name: (value, limit)} of every number compared; with a judge
+    (alignment.Judge), `alignment_mismatch` too."""
     t0 = time.perf_counter()
     k = ref.k
     n_ids = len(ref.titles)
@@ -135,6 +140,12 @@ def check(ref, answers, sample, limits: dict, log=None):
     if log:
         log(f"check: {len(pairs)} hits rescored in "
             f"{time.perf_counter() - t0:.2f} s")
+    if judge is not None:
+        t1 = time.perf_counter()
+        out["alignment_mismatch"] = (judge.mismatches(ans), 0)
+        if log:
+            log(f"check: {sum(len(a.ids) for a in ans)} alignments in "
+                f"{time.perf_counter() - t1:.2f} s")
     topk, gap = 0, 0.0
     for idx in sample:
         a = answers[idx]

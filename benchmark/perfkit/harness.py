@@ -76,6 +76,7 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda"):
     spec = Spec(root)
     cell = spec.cell(workload, trace=bool(trace))
     mode = cell.traffic["mode"]
+    align = sut.aligns(cell.config)
     on_card = torch.device(device).type == "cuda"
     build = os.path.join(root, "build", "benchmark")
 
@@ -92,7 +93,7 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda"):
         traffic = data.Traffic(cell.traffic, corpus, seed, seconds)
         if mode == "serve":
             schedule = traffic.schedule()
-            bodies = [sut.request_body(q, f"r{i}")
+            bodies = [sut.request_body(q, f"r{i}", align)
                       for i, (_, q) in enumerate(schedule)]
         log(f"data: {len(corpus.lengths)} sequences, {corpus.n_residues} "
             f"residues, {time.perf_counter() - t:.2f} s")
@@ -109,7 +110,7 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda"):
         # set-up and not in the traced part of the window
         warm_tracer = Tracer(build, Spans()) if trace else None
         t_setup = time.perf_counter()
-        system = sut.System(cell, corpus, device, root, spans, log)
+        system = sut.System(cell, corpus, device, root, spans, log, align)
         if mode == "batch":
             sut.batch_warm(system, traffic, warm_tracer)
         else:
@@ -146,17 +147,21 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda"):
                 proc.join()
 
     # the check: the reference on the card, the program's state freed
-    from perfkit import reference
+    from perfkit import alignment, reference
     t = time.perf_counter()
     cfg = cell.config
+    matrix = reference.load_matrix(reference.matrix_path(root, cfg["matrix"]))
     ref = reference.Reference(
         corpus.lengths, torch.as_tensor(corpus.flat, device=device),
-        corpus.titles, reference.load_matrix(
-            reference.matrix_path(root, cfg["matrix"])),
-        cfg["open_gap"], cfg["extend_gap"], cfg["top"])
+        corpus.titles, matrix, cfg["open_gap"], cfg["extend_gap"],
+        cfg["top"])
     log(f"check: the reference's database in {time.perf_counter() - t:.2f} s")
+    judge = alignment.Judge(
+        matrix, cfg["open_gap"], cfg["extend_gap"], alignment.corpus_subjects(
+            ref.order, corpus.flat, corpus.offsets)) if align else None
     sample = compare.draw_sample(answers, seed, cell.traffic["check"])
-    checks = compare.check(ref, answers, sample, cell.traffic["limits"], log)
+    checks = compare.check(ref, answers, sample, cell.traffic["limits"], log,
+                           judge)
     log(f"check: {len(answers)} answers, {len(sample)} searched in full "
         f"({sum(answers[i].query.size for i in sample)} residues), "
         f"{time.perf_counter() - t:.2f} s")
@@ -182,7 +187,7 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda"):
     out = {"correct": compare.passed(checks), "attempted": len(answers),
            "failed": len(answers) - len(answered), "metrics": metrics,
            "device": dev}
-    if tracer is not None:
+    if tracer is not None and tracer.summary is not None:
         s = tracer.summary
         dev["busy_s"], dev["window_s"] = s["busy_s"], s["window_s"]
         out["breakdown"] = {"device_ops": s["device_ops"],

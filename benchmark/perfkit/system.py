@@ -5,8 +5,8 @@ database resident on the device), the kernel libraries from the
 checkout's kernel directory, the engine's warmup and the mix's warm-up
 queries; a serve mix also starts `make_server(SearchService(db, engine))`
 on an ephemeral port.  The engine the service gets is `SpanEngine`, a thin
-proxy that records a span around each search_many (this is the only
-program code the benchmark wraps; no program file changes).
+proxy that records a span around each search_many and each align (this is
+the only program code the benchmark wraps; no program file changes).
 
 - batch: a closed loop of search_many calls, batch after batch, until the
   window's seconds are over; the batch running then completes, so the
@@ -14,6 +14,16 @@ program code the benchmark wraps; no program file changes).
 - serve: the open-loop client process posts each request at its due time;
   the window's numbers are read once every request due in it has its
   answer (or the wait after the window is over).
+
+A configuration with `"align": true` (absent: false) is a deployment that
+returns an alignment with every hit, asked for through the port's own
+entry points as its users ask: every request body, the warm-up's too,
+carries `"align": true`; a batch mix calls `engine.align(query, result)`
+after each search_many, one query at a time in the batch's order, inside
+the window (the warm-up batch's in set-up).  Once the window's seconds and
+the wait after it have passed, a batch's remaining queries get no
+alignment and count as unanswered, so a traceback far too slow ends the
+run with failures.
 """
 
 import json
@@ -23,15 +33,21 @@ import time
 
 import numpy as np
 
-from perfkit import synth
+from perfkit import alignment, synth
 from perfkit.compare import Answer
 
 WAIT_AFTER_S = 60.0        # how long an answer may come after the window
 
 
+def aligns(config) -> bool:
+    """Whether a configuration asks for an alignment with every hit."""
+    return bool(config.get("align", False))
+
+
 class SpanEngine:
-    """The engine with a span around search_many: (start, end, query
-    residues) into `spans`; every other attribute is the engine's.
+    """The engine with a span around search_many, (start, end, query
+    residues), and one around align, (start, end, hits), into `spans`;
+    every other attribute is the engine's.
 
     The profiler sees the device work of the thread that starts it only,
     and the service searches on its own drain thread; so `trace_between`
@@ -65,6 +81,14 @@ class SpanEngine:
                     not tr[0].stopped and time.monotonic() >= tr[2]:
                 tr[0].stop()
 
+    def align(self, query, result):
+        t0 = time.monotonic_ns()
+        try:
+            return self._engine.align(query, result)
+        finally:
+            self._spans.add("align", t0, time.monotonic_ns(),
+                            len(result.seq_ids))
+
 
 def _answer(a: Answer, title, length, hits):
     a.answered = True
@@ -72,14 +96,26 @@ def _answer(a: Answer, title, length, hits):
     a.scores = np.asarray([h["score"] for h in hits], np.int64)
     a.ids = np.asarray([h["id"] for h in hits], np.int64)
     a.titles = [h["title"] for h in hits]
+    a.alignments = [h.get("alignment") for h in hits]
     ev = [h.get("evalue") for h in hits]
     a.evalues = None if any(e is None for e in ev) else np.asarray(ev)
+
+
+def _hits(result, alignments=None):
+    """A SearchResult's hits in the served form: score, id, title and,
+    where given, the alignment's ten fields."""
+    hits = [{"score": int(s), "id": int(i), "title": t}
+            for s, i, t in zip(result.scores, result.seq_ids, result.titles)]
+    for h, aln in zip(hits, alignments or ()):
+        h["alignment"] = {f: getattr(aln, f) for f in alignment.FIELDS}
+    return hits
 
 
 class System:
     """The port, set up for one cell."""
 
-    def __init__(self, cell, corpus, device, root, spans, log):
+    def __init__(self, cell, corpus, device, root, spans, log, align=False):
+        """align: whether the configuration aligns (`aligns`)."""
         from oswald_tpu_torch.utils import compile_cache
         compile_cache.enable_compile_cache(
             os.path.join(root, "build", "benchmark", "kernels"), quiet=True)
@@ -102,6 +138,7 @@ class System:
         warm = cell.traffic["warm_lengths"]
         self.engine.warmup(max_query_len=max(warm), batch=True)
         log(f"setup: warmup {time.perf_counter() - t:.2f} s")
+        self.align = align
         self.server = self.service = None
 
     def start_server(self):
@@ -133,19 +170,28 @@ def batch_warm(system, traffic, tracer=None):
     qs = traffic.warm()
     if tracer is not None:
         tracer.start()
-    system.engine.search_many(qs, [f"warm{i}" for i in range(len(qs))])
+    res = system.engine.search_many(qs, [f"warm{i}" for i in range(len(qs))])
     if tracer is not None:
         tracer.stop()
+    if system.align:
+        for q, r in zip(qs, res):
+            system.engine.align(q, r)
 
 
 def batch_window(system, traffic, seconds, tracer=None):
     """Returns (answers, window seconds); with a tracer, traces batches
     1 .. n of the window (n: the mix's `trace_batches`), running on past
-    the window's seconds until they are done."""
+    the window's seconds until they are done.  A configuration that
+    aligns stops asking, and ends the loop, once the wait after the window
+    is over too."""
     n_trace = int(traffic.spec.get("trace_batches", 2))
     answers = []
     t0 = time.perf_counter()
     deadline = t0 + seconds
+    last = deadline + WAIT_AFTER_S
+
+    def late():
+        return system.align and time.perf_counter() >= last
     b = 0
     while True:
         if tracer is not None and b == 1:
@@ -155,30 +201,33 @@ def batch_window(system, traffic, seconds, tracer=None):
         res = system.engine.search_many(qs, titles)
         for j, (q, t) in enumerate(zip(qs, titles)):
             a = Answer(q, t)
-            if j < len(res):
+            if j < len(res) and not late():
                 r = res[j]
-                _answer(a, r.query_title, r.query_length,
-                        [{"score": int(s), "id": int(i), "title": tt}
-                         for s, i, tt in zip(r.scores, r.seq_ids, r.titles)])
+                alns = system.engine.align(q, r) if system.align else None
+                _answer(a, r.query_title, r.query_length, _hits(r, alns))
                 a.evalues = None if r.evalues is None else \
                     np.asarray(r.evalues)
             answers.append(a)
         b += 1
-        if tracer is not None and b == 1 + n_trace:
+        over = late()
+        if tracer is not None and tracer.started and not tracer.stopped \
+                and (b == 1 + n_trace or over):
             tracer.stop()
         tracing = tracer is not None and not tracer.stopped
-        if time.perf_counter() >= deadline and not tracing:
+        if over or (time.perf_counter() >= deadline and not tracing):
             break
     window_s = time.perf_counter() - t0
-    if tracer is not None:
+    if tracer is not None and tracer.stopped:
         tracer.finish()
     return answers, window_s
 
 
 # --- serve ------------------------------------------------------------------
-def request_body(query, title) -> bytes:
-    return json.dumps({"query": synth.decode(query),
-                       "titles": [title]}).encode()
+def request_body(query, title, align=False) -> bytes:
+    body = {"query": synth.decode(query), "titles": [title]}
+    if align:
+        body["align"] = True
+    return json.dumps(body).encode()
 
 
 def _reply(client, limit_s):
@@ -191,7 +240,7 @@ def _reply(client, limit_s):
 def serve_warm(system, client, address, traffic, tracer=None):
     """The warm-up requests, all due at once; with a tracer, the first
     dispatch is profiled on the drain thread (and the profile dropped)."""
-    jobs = [(0.0, request_body(q, f"warm{i}"))
+    jobs = [(0.0, request_body(q, f"warm{i}", system.align))
             for i, q in enumerate(traffic.warm())]
     if tracer is not None:
         system.engine.trace_between(tracer, 0.0, 0.0)

@@ -28,15 +28,16 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 class Spans:
     """Spans of the benchmark's own calls into the program, thread-safe:
-    (name, start ns, end ns, query residues) on time.monotonic_ns."""
+    (name, start ns, end ns, count: a search's query residues, an
+    alignment call's hits) on time.monotonic_ns."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.items = []
 
-    def add(self, name, t0, t1, residues=0):
+    def add(self, name, t0, t1, count=0):
         with self._lock:
-            self.items.append((name, t0, t1, residues))
+            self.items.append((name, t0, t1, count))
 
 
 def union(intervals):
@@ -172,7 +173,8 @@ class Tracer:
                  for n, t0, t1, res in list(self.spans.items)]
         self.summary = reduce_trace(events, lo, hi,
                                     [s[:3] for s in spans])
-        # the query residues of the calls that ran wholly inside
-        self.summary["query_residues"] = sum(r for _, a, b, r in spans
-                                             if a >= lo and b <= hi)
+        # the query residues of the searches that ran wholly inside
+        self.summary["query_residues"] = sum(
+            r for n, a, b, r in spans
+            if n == "search_many" and a >= lo and b <= hi)
         return self.summary

@@ -79,6 +79,33 @@ def make_tiny_root(path, n_seqs=300):
     return str(path)
 
 
+def add_align_cell(root, traffic):
+    """A configuration that returns alignments, added to a tiny root as a
+    new deployment is added (new files and new BENCHMARK.json entries): the
+    tiny Swiss-Prot database under BLOSUM62 11/1, top 5, `"align": true`,
+    and its cell under the root's mix `traffic`.  Returns the cell's
+    name."""
+    bench = os.path.join(root, "benchmark")
+    with open(os.path.join(bench, "configs", "swissprot-blosum62.json")) \
+            as fh:
+        cfg = json.load(fh)
+    cfg.update(name="tiny-align", open_gap=11, extend_gap=1, top=5,
+               align=True)
+    with open(os.path.join(bench, "configs", "tiny-align.json"), "w") as fh:
+        json.dump(cfg, fh)
+    with open(os.path.join(root, "BENCHMARK.json")) as fh:
+        spec = json.load(fh)
+    spec["configs"].append({"name": "tiny-align", "source": "x",
+                            "file": "benchmark/configs/tiny-align.json",
+                            "reduced": [], "why": "x"})
+    name = f"tiny-align.{traffic}"
+    spec["workloads"].append({"name": name, "config": "tiny-align",
+                              "traffic": traffic, "chips": 1, "why": "x"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
+        json.dump(spec, fh)
+    return name
+
+
 @pytest.fixture
 def tiny_root(tmp_path):
     return make_tiny_root(tmp_path)

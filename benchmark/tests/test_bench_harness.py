@@ -10,10 +10,14 @@ import sys
 
 import pytest
 
-from conftest import BENCH, ROOT, make_tiny_root
+from conftest import BENCH, ROOT, add_align_cell, make_tiny_root
 from perfkit import harness
 
 LINE_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+# the numbers a cell that returns no alignments compares, in their order
+CHECKS = ["unanswered", "echo_mismatch", "hit_order_mismatch",
+          "hit_title_mismatch", "hit_score_mismatch", "topk_mismatch",
+          "evalue_log_gap"]
 
 
 @pytest.mark.parametrize("workload, trace", [
@@ -21,11 +25,13 @@ LINE_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
     ("swissprot-blosum62.batch20", 1),
     ("swissprot-blosum62.serve-poisson", 0),
     ("swissprot-blosum62.serve-poisson", 1),
+    ("swissprot-pam30-short.batch-peptides", 0),
 ])
 def test_result_line(tiny_root, workload, trace):
     out = harness.run_cell(tiny_root, workload, 2**31 + 5, 1.0, trace, "cpu")
     assert list(out)[:5] == LINE_KEYS and list(out)[-1] == "checks"
     assert out["correct"] is True, out["checks"]
+    assert list(out["checks"]) == CHECKS
     assert out["attempted"] > 0 and out["failed"] == 0
     for c in out["checks"].values():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
@@ -79,6 +85,21 @@ def test_added_config_mix_and_metric_need_no_edit(tmp_path):
     out = harness.run_cell(root, "tiny-gaps11.batch-four", 3, 1.0, 0, "cpu")
     assert out["correct"] is True
     assert {"queries_per_s", "setup_s"} == set(out["metrics"])
+
+
+@pytest.mark.parametrize("traffic", ["batch20", "serve-poisson"])
+def test_added_align_config_needs_no_edit(tmp_path, traffic):
+    """A configuration with `"align": true` and its cell, added as new
+    files and entries, runs under a batch and a serve mix: every hit comes
+    with an alignment, and each is judged."""
+    root = make_tiny_root(tmp_path)
+    cell = add_align_cell(root, traffic)
+    out = harness.run_cell(root, cell, 2**31 + 9, 1.0, 0, "cpu")
+    assert out["correct"] is True, out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+    assert list(out["checks"]) == CHECKS[:5] + ["alignment_mismatch"] + \
+        CHECKS[5:]
+    assert out["checks"]["alignment_mismatch"] == {"value": 0, "limit": 0}
 
 
 def test_isolation_check_by_whole_top_level_name(monkeypatch):

@@ -1,6 +1,8 @@
 """Each metric's arithmetic on a synthetic trace and synthetic counters,
 the union of device intervals included."""
 
+import json
+
 import pytest
 
 from conftest import ROOT
@@ -46,6 +48,32 @@ def test_reduce_trace_busy_and_named_gaps():
     assert sum(gaps.values()) == pytest.approx(400e-6)
 
 
+def test_tracer_counts_query_residues_of_searches_alone(tmp_path):
+    """An align span inside the traced window names the idle gap it holds
+    and adds nothing to the query residues the rooflines read."""
+    spans = trace.Spans()
+    tr = trace.Tracer(str(tmp_path), spans)
+    tr._c_start = 1_000_000.0                  # ns: 1000 us on the trace
+    clock = {"ph": "X", "cat": "user_annotation", "name": "bench.clock",
+             "dur": 1}
+
+    class Profile:
+        def export_chrome_trace(self, path):
+            with open(path, "w") as fh:
+                json.dump({"traceEvents": [
+                    dict(clock, ts=1000), dict(clock, ts=2000),
+                    {"ph": "X", "cat": "kernel", "name": "sw_groups_kernel",
+                     "ts": 1100, "dur": 400}]}, fh)
+    tr._prof = Profile()
+    spans.add("search_many", 1_050_000, 1_550_000, 700)
+    spans.add("align", 1_560_000, 1_990_000, 5)
+    s = tr.finish()
+    assert s["query_residues"] == 700
+    assert s["busy_s"] == pytest.approx(400e-6)
+    assert dict(s["idle_gaps"])["align after sw_groups_kernel"] == \
+        pytest.approx(500e-6)
+
+
 def _readers():
     spec = Spec(ROOT)
     return {m["name"]: spec.reader(m["name"])
@@ -53,7 +81,10 @@ def _readers():
 
 
 def test_every_metric_has_a_reader():
-    assert len(_readers()) == 16
+    doc = Spec(ROOT).doc
+    readers = _readers()
+    assert len(readers) == len(doc["end_to_end"]) + len(doc["per_layer"])
+    assert all(callable(r) for r in readers.values())
 
 
 def test_a_split_metric_reads_its_own_file_first(tmp_path):
